@@ -6,21 +6,31 @@
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``src/repro_torch/kernels/build`` and runs four phases, each of which
+``src/repro_torch/kernels/build`` and runs five phases, each of which
 raises on failure:
 
 1. device: the card's name and power limit, torch/CUDA versions, and the
    kernels' build time;
 2. kernels: every hand-written kernel (wNa16 GEMM, paged decode, chunk
-   prefill) against its plain torch version at the main path's shapes,
-   with the largest error against a stated tolerance and CUDA-event
-   medians of the kernel, the plain version and one library call;
+   prefill, and the decode and chunk walks' quantized-KV lane over pools
+   quantized by ``PagedKVPool.quantize_blocks``, int8 and int4) against
+   its plain torch version at the main path's shapes, with the largest
+   error against a stated tolerance and CUDA-event medians of the kernel,
+   the plain version and one library call; a zeroed quantized-KV sidecar
+   must give the no-quant kernel's output exactly;
 3. engine: the quickstart path — LIS profile, int4 swap plan, the
    token-budgeted ``MorphServeEngine`` serving a bursty trace with real
    compute — on Llama-2-7B at full width (d 4096, 32 heads, d_ff 11008,
    vocab 32000) cut to 8 layers, bf16 weights from a seeded generator;
-4. step parity: one decode step and one chunk step of that model through
-   the kernels against the same steps with the plain versions.
+4. kv-quant engine: the same model and trace with the quantize-cold tier
+   on (``KVQuantConfig(enabled=True)``, a budget of the weights + 16 KV
+   blocks): every request served, cold blocks quantized, and the decode
+   and chunk steps over quantized blocks run through the quantized lane;
+   then the tier off at that same budget, a control for the tier's effect
+   on the served report;
+5. step parity: one decode step and one chunk step of that model through
+   the kernels against the same steps with the plain versions, then the
+   same two steps with about half of the live blocks quantized (int8).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It exits non-zero, with no ``ok`` line, when there is no CUDA device, when
@@ -28,6 +38,7 @@ it does not sit in a checkout of the repository, or when any phase fails.
 """
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -182,15 +193,52 @@ def _sdpa_gathered(torch, q, kp, vp, tables, T, mask, G):
     return lambda: F.scaled_dot_product_attention(qf, k, v, attn_mask=mask)
 
 
-def decode_cases(torch, timer, results):
+def _quantize(torch, kp, vp, qids, bits):
+    """Quantize pool blocks ``qids`` through ``PagedKVPool.quantize_blocks``
+    (a one-layer pool of the same shape): returns the fp pools with those
+    slots zeroed and the layer's (qk, qv, k_scale, v_scale, k_zero, v_zero)
+    bundle."""
+    from repro_torch.configs import MORPH_LLAMA2_7B
+    from repro_torch.engine.kv_cache import PagedKVPool
+    cap, bs, KVH, Dh = kp.shape
+    cfg = MORPH_LLAMA2_7B.replace(n_layers=1, n_kv_heads=KVH,
+                                  n_heads=KVH, d_model=KVH * Dh)
+    pool = PagedKVPool(cfg, cap, bs, dtype=kp.dtype, bucket_capacity=False,
+                       device="cuda")
+    pool.k[0].copy_(kp)
+    pool.v[0].copy_(vp)
+    assert pool.quantize_blocks(sorted(set(qids)), bits=bits)
+    return pool.k[0], pool.v[0], tuple(a[0] for a in pool.kv_quant_bundle())
+
+
+def _dequantized(torch, kp, vp, kvq):
+    """The pools with every block dequantized by the lane's FMA, for the
+    library yardstick (computed once, outside the timed call)."""
+    qk, qv, ks, vs, kz, vz = kvq
+    e = (slice(None), None, None, None)
+    return (kp.float() + qk.float() * ks[e] + kz[e],
+            vp.float() + qv.float() * vs[e] + vz[e])
+
+
+DECODE_CASES = ([(B, ctx, 32, 32, 0, 0.0, fused) for B in (1, 8)
+                 for ctx in (17, 256, 2048) for fused in (True, False)]
+                + [(8, 256, 32, 8, 0, 0.0, True),
+                   (8, 2048, 32, 32, 64, 30.0, True),
+                   (8, 2048, 32, 8, 64, 30.0, False)])
+DECODE_Q_CASES = [(8, 2048, 32, 32, 0, 0.0, True),
+                  (8, 2048, 32, 8, 64, 30.0, True),
+                  (8, 2048, 32, 32, 0, 0.0, False)]
+
+
+def decode_cases(torch, timer, results, cases=DECODE_CASES, bits=None):
+    """K2 (``bits=None``) or, with ``bits``, K2-q: the pools are quantized
+    through the pool's codec, every block except each sequence's tail."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode
-    gen = torch.Generator(device="cuda").manual_seed(12)
+    gen = torch.Generator(device="cuda").manual_seed(12 if bits is None
+                                                     else 40 + bits)
     bs, Dh = 16, 128
-    cases = [(B, ctx, 32, 32, 0, 0.0, fused) for B in (1, 8)
-             for ctx in (17, 256, 2048) for fused in (True, False)]
-    cases += [(8, 256, 32, 8, 0, 0.0, True), (8, 2048, 32, 32, 64, 30.0, True),
-              (8, 2048, 32, 8, 64, 30.0, False)]
+    kernel = "paged_decode" if bits is None else "paged_decode_q"
     for B, ctx, H, KVH, window, softcap, fused in cases:
         G = H // KVH
         lens = torch.tensor([ctx - (b * 5) % max(ctx // 2, 1)
@@ -204,59 +252,96 @@ def decode_cases(torch, timer, results):
         vn = torch.randn((B, KVH, Dh), generator=gen, device="cuda")
         kw = dict(scale=Dh ** -0.5, window=window, softcap=softcap,
                   fused_new=fused)
+        noop = None
+        if bits is not None:
+            # a zeroed sidecar must give the no-quant kernel's output exactly
+            zero = (torch.zeros(kp.shape, dtype=torch.int8, device="cuda"),) \
+                * 2 + (torch.zeros(kp.shape[0], device="cuda"),) * 4
+            a0 = (q, kn if fused else None, vn if fused else None, kp, vp,
+                  tables, lens)
+            d0 = paged_decode(*a0, **kw)
+            d1 = paged_decode(*a0, kv_quant=zero, **kw)
+            torch.cuda.synchronize()
+            noop = float((d0.float() - d1.float()).abs().max())
+            if noop != 0.0:
+                raise AssertionError(f"decode-q no-op bundle differs: {noop}")
+            qids = [int(tables[b, j]) for b in range(B)
+                    for j in range((int(lens[b]) - 1) // bs)]
+            kp, vp, kvq = _quantize(torch, kp, vp, qids, bits)
+            kw["kv_quant"] = kvq
         a = (q, kn if fused else None, vn if fused else None, kp, vp, tables,
              lens)
         want = ref.paged_decode_ref(*a, **kw)
         got = paged_decode(*a, **kw)
         torch.cuda.synchronize()
         name = (f"decode B={B} ctx={ctx} H={H} KVH={KVH} w={window} "
-                f"cap={softcap} fused={fused}")
+                f"cap={softcap} fused={fused}"
+                + ("" if bits is None else f" int{bits}"))
         err = check_close(name, got, want)
         t_k = timer.ms(lambda: paged_decode(*a, **kw))
         t_p = timer.ms(lambda: ref.paged_decode_ref(*a, **kw))
-        # visited work: each sequence's visible pool tokens (+ the new one)
+        # visited work: each sequence's visible pool tokens (+ the new one);
+        # the quantized lane also reads the int8 mirror of every visited
+        # token and does its FMA (3 operations an element of k and of v)
         qpos = lens + (1 if fused else 0) - 1
         vis = [min(int(n), window - (1 if fused else 0)) if window else int(n)
                for n in lens]
         vis_tot = sum(vis) + (B if fused else 0)
-        nbytes = (q.numel() * 2 * 2 + vis_tot * KVH * Dh * 4 * 2
+        pool_tok = sum(vis)
+        per_tok = KVH * Dh * (4 if bits is None else 5) * 2
+        nbytes = (q.numel() * 2 * 2 + pool_tok * per_tok
+                  + (B * KVH * Dh * 4 * 2 if fused else 0)
                   + tables.numel() * 4 + B * 4)
         flops = 4 * G * Dh * KVH * vis_tot
+        if bits is not None:
+            nbytes += 4 * 4 * sum(-(-v // bs) + 1 for v in vis)
+            flops += 6 * KVH * Dh * pool_tok
         bound = max(nbytes / HBM_BYTES_S, flops / F32_FLOP_S) * 1e3
         by = "bytes" if nbytes / HBM_BYTES_S >= flops / F32_FLOP_S \
             else "operations"
-        # library: SDPA over the gathered context of the visible span
+        # library: SDPA over the gathered (pre-dequantized) visible span
         T = int(lens.max()) + (1 if fused else 0)
         kpos = torch.arange(T, device="cuda")
         mask = kpos[None, :] < (lens[:, None] + (1 if fused else 0))
         if window:
             mask &= kpos[None, :] > (qpos[:, None] - window)
-        kp2, vp2 = kp, vp
+        kp2, vp2 = (kp, vp) if bits is None else _dequantized(torch, kp, vp,
+                                                              kvq)
         if fused:          # the new token at position lens[b] of a copy
-            kp2, vp2 = kp.clone(), vp.clone()
+            kp2, vp2 = kp2.clone(), vp2.clone()
             blk = tables.long().gather(1, (lens.long() // bs)[:, None])[:, 0]
             kp2[blk, lens.long() % bs] = kn
             vp2[blk, lens.long() % bs] = vn
         lib = _sdpa_gathered(torch, q[:, :, None], kp2, vp2, tables, T,
                              mask[:, None, None, :], G)
         t_l = timer.ms(lib)
-        results.append(dict(kernel="paged_decode", case=name, err=err, ms=t_k,
+        results.append(dict(kernel=kernel, case=name, err=err, ms=t_k,
                             plain_ms=t_p, library_ms=t_l, bound_ms=bound,
-                            bound_by=by))
+                            bound_by=by, noop_err=noop))
         log(f"  {name}: err {err:.2e} kernel {t_k:.4f} ms plain {t_p:.4f} ms "
-            f"sdpa {t_l:.4f} ms bound {bound:.4f} ms ({by})")
+            f"sdpa {t_l:.4f} ms bound {bound:.4f} ms ({by})"
+            + ("" if noop is None else f"; no-op bundle diff {noop}"))
 
 
-def chunk_cases(torch, timer, results):
+CHUNK_CASES = ([(Cp, pos0, 32, 32, 0, 0.0, fused) for Cp in (16, 256)
+                for pos0 in (0, 200) for fused in (True, False)]
+               + [(256, 200, 32, 8, 0, 0.0, True),
+                  (256, 200, 32, 32, 64, 30.0, True),
+                  (16, 200, 32, 8, 64, 30.0, False)])
+CHUNK_Q_CASES = [(Cp, 200, 32, 32, 0, 0.0, fused) for Cp in (16, 256)
+                 for fused in (True, False)]
+
+
+def chunk_cases(torch, timer, results, cases=CHUNK_CASES, bits=None):
+    """K3 (``bits=None``) or, with ``bits``, K3-q: the context blocks wholly
+    below the chunk are quantized through the pool's codec (the chunk's own
+    blocks are the sequence's tail)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_chunk
-    gen = torch.Generator(device="cuda").manual_seed(13)
+    gen = torch.Generator(device="cuda").manual_seed(13 if bits is None
+                                                     else 50 + bits)
     bs, Dh = 16, 128
-    cases = [(Cp, pos0, 32, 32, 0, 0.0, fused) for Cp in (16, 256)
-             for pos0 in (0, 200) for fused in (True, False)]
-    cases += [(256, 200, 32, 8, 0, 0.0, True), (256, 200, 32, 32, 64, 30.0,
-                                                 True),
-              (16, 200, 32, 8, 64, 30.0, False)]
+    kernel = "paged_chunk" if bits is None else "paged_chunk_q"
     for Cp, pos0, H, KVH, window, softcap, fused in cases:
         G = H // KVH
         kp, vp, tables = _pool_case(torch, gen, 1, [pos0 + Cp], KVH, Dh, bs)
@@ -271,33 +356,57 @@ def chunk_cases(torch, timer, results):
             vp[blk, pos % bs] = vn[0]
         kw = dict(scale=Dh ** -0.5, window=window, softcap=softcap,
                   fused_new=fused)
+        noop = None
+        if bits is not None:
+            zero = (torch.zeros(kp.shape, dtype=torch.int8, device="cuda"),) \
+                * 2 + (torch.zeros(kp.shape[0], device="cuda"),) * 4
+            a0 = (q, kn if fused else None, vn if fused else None, kp, vp,
+                  tables, pos0)
+            c0 = paged_chunk(*a0, **kw)
+            c1 = paged_chunk(*a0, kv_quant=zero, **kw)
+            torch.cuda.synchronize()
+            noop = float((c0.float() - c1.float()).abs().max())
+            if noop != 0.0:
+                raise AssertionError(f"chunk-q no-op bundle differs: {noop}")
+            qids = [int(b) for b in tables[0, :pos0 // bs]]
+            kp, vp, kvq = _quantize(torch, kp, vp, qids, bits)
+            kw["kv_quant"] = kvq
         a = (q, kn if fused else None, vn if fused else None, kp, vp, tables,
              pos0)
         want = ref.paged_chunk_ref(*a, **kw)
         got = paged_chunk(*a, **kw)
         torch.cuda.synchronize()
         name = (f"chunk Cp={Cp} pos0={pos0} H={H} KVH={KVH} w={window} "
-                f"cap={softcap} fused={fused}")
+                f"cap={softcap} fused={fused}"
+                + ("" if bits is None else f" int{bits}"))
         err = check_close(name, got, want)
         t_k = timer.ms(lambda: paged_chunk(*a, **kw))
         t_p = timer.ms(lambda: ref.paged_chunk_ref(*a, **kw))
         n_vis = [min(pos0 + i + 1, window) if window else pos0 + i + 1
                  for i in range(Cp)]
         ctx_read = min(pos0, window - 1) if window else pos0
-        nbytes = (q.numel() * 2 * 2 + (ctx_read + Cp) * KVH * Dh * 4 * 2
+        # pool tokens read: the context, plus the chunk's own in pool-read
+        # mode; the quantized lane reads their int8 mirror too
+        pool_tok = ctx_read + (0 if fused else Cp)
+        per_tok = KVH * Dh * (4 if bits is None else 5) * 2
+        nbytes = (q.numel() * 2 * 2 + pool_tok * per_tok
+                  + (Cp * KVH * Dh * 4 * 2 if fused else 0)
                   + tables.numel() * 4)
         flops = 4 * Dh * H * sum(n_vis)
+        if bits is not None:
+            nbytes += 4 * 4 * (-(-pool_tok // bs) + 1)
+            flops += 6 * KVH * Dh * pool_tok
         bound = max(nbytes / HBM_BYTES_S, flops / F32_FLOP_S) * 1e3
         by = "bytes" if nbytes / HBM_BYTES_S >= flops / F32_FLOP_S \
             else "operations"
+        kp2, vp2 = (kp, vp) if bits is None else _dequantized(torch, kp, vp,
+                                                              kvq)
         if fused:
-            kp2, vp2 = kp.clone(), vp.clone()
+            kp2, vp2 = kp2.clone(), vp2.clone()
             pos = pos0 + torch.arange(Cp, device="cuda")
             blk = tables[0].long()[pos // bs]
             kp2[blk, pos % bs] = kn[0]
             vp2[blk, pos % bs] = vn[0]
-        else:
-            kp2, vp2 = kp, vp
         T = pos0 + Cp
         qi = pos0 + torch.arange(Cp, device="cuda")[:, None]
         kpos = torch.arange(T, device="cuda")[None, :]
@@ -307,22 +416,22 @@ def chunk_cases(torch, timer, results):
         lib = _sdpa_gathered(torch, q.permute(0, 2, 1, 3), kp2, vp2, tables,
                              T, mask[None, None], G)
         t_l = timer.ms(lib)
-        results.append(dict(kernel="paged_chunk", case=name, err=err, ms=t_k,
+        results.append(dict(kernel=kernel, case=name, err=err, ms=t_k,
                             plain_ms=t_p, library_ms=t_l, bound_ms=bound,
-                            bound_by=by))
+                            bound_by=by, noop_err=noop))
         log(f"  {name}: err {err:.2e} kernel {t_k:.4f} ms plain {t_p:.4f} ms "
-            f"sdpa {t_l:.4f} ms bound {bound:.4f} ms ({by})")
+            f"sdpa {t_l:.4f} ms bound {bound:.4f} ms ({by})"
+            + ("" if noop is None else f"; no-op bundle diff {noop}"))
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the quickstart path at full width
+# phases 3 and 4: the quickstart path at full width, with the tier off / on
 # ---------------------------------------------------------------------------
-def engine_phase(torch, counters):
-    from repro_torch.configs import MORPH_LLAMA2_7B, ServingConfig
-    from repro_torch.core import profile_swap_sequence, tree_bytes
-    from repro_torch.engine import (EngineConfig, MorphServeEngine,
-                                    NVIDIA_H100_SXM, azure_like)
-    from repro_torch.engine.kv_cache import kv_block_bytes
+def build_model(torch):
+    """Llama-2-7B at full width cut to 8 layers, bf16 weights from a seeded
+    generator, and its LIS swap order."""
+    from repro_torch.configs import MORPH_LLAMA2_7B
+    from repro_torch.core import profile_swap_sequence
     from repro_torch.models import lm
 
     cfg = MORPH_LLAMA2_7B.replace(n_layers=8)        # depth cut, full width
@@ -337,24 +446,42 @@ def engine_phase(torch, counters):
         f"H={cfg.n_heads} KVH={cfg.n_kv_heads} d_ff={cfg.d_ff} "
         f"vocab={cfg.vocab} {cfg.dtype}; LIS swap order {prof.order} "
         f"({time.perf_counter() - t0:.1f} s incl. init)")
+    return cfg, params, prof.order
 
-    # quickstart's deliberately tight HBM budget: weights + 8 fp32 KV blocks
+
+def engine_phase(torch, model, counters, *, kv_blocks, kv_quant):
+    """Serve the quickstart trace through ``MorphServeEngine`` with real
+    compute under a budget of the weights plus ``kv_blocks`` float32 KV
+    blocks, with the quantize-cold tier off or on. ``counters`` maps each
+    kernel's name to its (wrapper, counter attribute); the counts are set
+    to 0 just before the run and read just after."""
+    from repro_torch.configs import ServingConfig
+    from repro_torch.core import tree_bytes
+    from repro_torch.engine import (EngineConfig, KVQuantConfig,
+                                    MorphServeEngine, NVIDIA_H100_SXM,
+                                    azure_like)
+    from repro_torch.engine.kv_cache import kv_block_bytes
+
+    cfg, params, order = model
     wb = tree_bytes(params)
     bb = kv_block_bytes(cfg, 16, 4)
-    sc = ServingConfig(hbm_budget_bytes=int((wb + 8 * bb) / 0.95) + 2 * bb,
+    sc = ServingConfig(hbm_budget_bytes=int((wb + kv_blocks * bb) / 0.95)
+                       + 2 * bb,
                        kv_block_size=16, max_batch_slots=8, max_seq_len=1024,
                        swap_levels=(0, 1, 2, 4), mode="performance",
                        kv_resize_step_frac=0.25)
     ecfg = EngineConfig(policy="morph", compute="real", use_quant_kernel=True,
-                        hw=NVIDIA_H100_SXM)
+                        hw=NVIDIA_H100_SXM,
+                        kv_quant=KVQuantConfig(enabled=kv_quant))
     t0 = time.perf_counter()
-    eng = MorphServeEngine(cfg, params, sc, ecfg, swap_order=prof.order,
+    eng = MorphServeEngine(cfg, params, sc, ecfg, swap_order=order,
                            device="cuda")
     torch.cuda.synchronize()
     log(f"engine built ({time.perf_counter() - t0:.1f} s): weights "
         f"{wb / 1e9:.3f} GB, KV block {bb / 1e6:.3f} MB, budget "
-        f"{sc.hbm_budget_bytes / 1e9:.3f} GB, start pool "
-        f"{eng.pool.num_blocks - 1} blocks")
+        f"{sc.hbm_budget_bytes / 1e9:.3f} GB (weights + {kv_blocks} "
+        f"blocks), start pool {eng.pool.num_blocks - 1} blocks, "
+        f"kv-quant tier {'on' if kv_quant else 'off'}")
 
     bad_logits = []
 
@@ -371,53 +498,89 @@ def engine_phase(torch, counters):
 
     trace = azure_like(duration_s=4.0, base_rps=2.0, seed=3, prompt_mean=160,
                        gen_mean=24, prompt_max=512, gen_max=48)
-    for c in counters:
-        c.launches = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    cap0 = eng.pool.capacity
     t0 = time.perf_counter()
     report = eng.run_trace(trace)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+    peak_alloc = torch.cuda.max_memory_allocated()
 
     hist = eng.monitor.history
     levels = sorted({t.swap_level for t in hist})
     blocks = [t.kv_total_blocks for t in hist]
+    # the device bytes of the pool and its sidecar at the largest capacity
+    # the run reached (every pool and sidecar tensor is capacity-wide)
+    p = eng.pool
+    peak_cap = max([cap0] + [p._cap_bucket(n + 1) for n in blocks] +
+                   [p._cap_bucket(n + 1) for _, n in eng.resize_log])
+    per_block = sum(t.numel() * t.element_size() for t in
+                    (p.k, p.v, p.qk, p.qv, p.k_scale, p.v_scale, p.k_zero,
+                     p.v_zero) if t is not None) / p.capacity
     chunks = sum(r.prefill_chunks for r in eng.all_requests)
     tokens = sum(len(r.generated) for r in eng.all_requests)
+    events = collections.Counter()
+    for _, kind, n in eng.kv_quant_events:
+        events[kind] += n
     log(f"served {report.n_finished}/{report.n_requests} requests; "
         f"{report.row()} (virtual clock, H100 cost model)")
     log(f"swap levels used {levels}; KV pool {blocks[0]} -> peak "
         f"{max(blocks)} -> end {blocks[-1]} blocks; swaps "
         f"{len(eng.actuator.swap_log)}, resizes {len(eng.resize_log)}, "
-        f"chunk prefills {chunks}, steps {len(hist)}")
+        f"chunk prefills {chunks}, steps {len(hist)}; first swap at "
+        f"{eng.actuator.swap_log[0][0] if eng.actuator.swap_log else '-'} "
+        f"s (virtual)")
+    log(f"kv-quant events {len(eng.kv_quant_events)} (blocks: "
+        f"{dict(events)}), peak quantized blocks "
+        f"{max(t.kv_quant_blocks for t in hist)}, watchdog trips "
+        f"{eng.watchdog_trips}")
+    log(f"device bytes: pool + sidecar at the peak capacity of {peak_cap} "
+        f"blocks {peak_cap * per_block / 1e6:.1f} MB (sidecar "
+        f"{'allocated' if p.qk is not None else 'never allocated'}); "
+        f"torch.cuda.max_memory_allocated over the run "
+        f"{peak_alloc / 1e9:.3f} GB")
     log(f"engine wall time {wall:.2f} s for {tokens} generated tokens "
         f"(host clock, synchronized); launches {launches}")
     fails = []
     if report.n_finished != report.n_requests or report.n_requests == 0:
         fails.append("not every request was served")
-    if max(levels) <= 0:
-        fails.append("no swap level > 0 was reached")
-    if chunks <= 0:
-        fails.append("no chunked prefill happened")
-    for name, n in launches.items():
-        if n <= 0:
+    if kv_quant:
+        if events["quantize"] <= 0:
+            fails.append("the quantize-cold tier never quantized a block")
+        if any(kind == "quant_ledger" for _, kind, _ in eng.watchdog_trips):
+            fails.append("the watchdog corrected the quantized-block ledger")
+        need = ("paged_decode_q", "paged_chunk_q")
+    else:
+        if max(levels) <= 0:
+            fails.append("no swap level > 0 was reached")
+        if chunks <= 0:
+            fails.append("no chunked prefill happened")
+        need = ("wna16_gemm", "paged_decode", "paged_chunk")
+    for name in need:
+        if launches[name] <= 0:
             fails.append(f"kernel {name} was not launched on the main path")
     if bad_logits:
         fails.append(f"non-finite logits in {sorted(set(bad_logits))}")
     if fails:
         raise AssertionError("engine phase: " + "; ".join(fails))
-    return cfg, eng, launches
+    return eng, launches
 
 
 # ---------------------------------------------------------------------------
-# phase 4: one decode step and one chunk step, kernels vs plain
+# phase 5: decode and chunk steps, kernels vs plain
 # ---------------------------------------------------------------------------
 def parity_phase(torch, cfg, eng):
     """One decode step (8 live sequences of ragged length) and one chunk
     step of the full-width model at the deepest swap level (every layer
     int4, so every matmul of the layers goes through K1), through the
-    kernels and through the plain versions, each from the same pool
-    state."""
+    kernels and through the plain versions, each from the same pool state;
+    then the same two steps with about half of the live blocks quantized
+    (int8), through K2-q and K3-q. ``eng`` is the tier-on engine, whose
+    attention specs take a bundle."""
     from repro_torch.engine.kv_cache import PagedKVPool
     level = max(eng.plan.levels)
     layers = eng.plan.layer_list(level)
@@ -436,8 +599,9 @@ def parity_phase(torch, cfg, eng):
                      lens)
 
     def compare(what, run):
-        a = run(pool.k.clone(), pool.v.clone(), False)
-        b = run(pool.k.clone(), pool.v.clone(), True)
+        kvq = pool.kv_quant_bundle()
+        a = run(pool.k.clone(), pool.v.clone(), kvq, False)
+        b = run(pool.k.clone(), pool.v.clone(), kvq, True)
         torch.cuda.synchronize()
         scale = float(b.float().abs().max())
         err = float((a.float() - b.float()).abs().max())
@@ -451,15 +615,26 @@ def parity_phase(torch, cfg, eng):
 
     tokens = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
                            device="cuda")
-    compare(f"decode step ({slots} live slots, level {level}: all layers "
-            "int4)",
-            lambda k, v, plain: ex.decode(layers, tokens, lens, k, v, tables,
-                                          plain=plain))
     pos0 = int(lens[0])
     chunk = torch.randint(0, cfg.vocab, (1, 64), generator=gen, device="cuda")
-    compare(f"chunk step (Cp=64 at pos0={pos0})",
-            lambda k, v, plain: ex.prefill_chunk(layers, chunk, pos0, k, v,
-                                                 tables[0], plain=plain))
+
+    def steps(tag):
+        compare(f"decode step ({slots} live slots, level {level}: all "
+                f"layers int4{tag})",
+                lambda k, v, kvq, plain: ex.decode(
+                    layers, tokens, lens, k, v, tables, kvq, plain=plain))
+        compare(f"chunk step (Cp=64 at pos0={pos0}{tag})",
+                lambda k, v, kvq, plain: ex.prefill_chunk(
+                    layers, chunk, pos0, k, v, tables[0], kvq, plain=plain))
+
+    steps("")
+    # quantize the first half of each sequence's full blocks (never the
+    # tail the decode step appends to, nor the chunk's blocks)
+    qids = [int(tables[i, j]) for i in range(slots)
+            for j in range((int(lens[i]) // bs + 1) // 2)]
+    pool.quantize_blocks(qids, bits=8)
+    live = sum(-(-int(n) // bs) for n in lens)
+    steps(f"; {len(qids)} of {live} live blocks int8")
 
 
 def main() -> int:
@@ -496,32 +671,70 @@ def main() -> int:
     results = []
     log("kernel phase (bf16 activations, float32 pool; tolerance "
         f"|k-p| <= rtol*|p| + atol*max|p|, {TOL})")
+    t0 = time.perf_counter()
     wna16_cases(torch, timer, results)
     decode_cases(torch, timer, results)
     chunk_cases(torch, timer, results)
+    log("kv_quant lane (pools quantized through PagedKVPool.quantize_blocks,"
+        " every block but each sequence's tail; a zeroed sidecar must equal "
+        "the no-quant kernel exactly)")
+    for bits in (8, 4):
+        decode_cases(torch, timer, results, DECODE_Q_CASES, bits=bits)
+        chunk_cases(torch, timer, results, CHUNK_Q_CASES, bits=bits)
+    log(f"kernel phase {time.perf_counter() - t0:.1f} s")
 
-    # 3. the main path; only its launches are counted
-    counters = (wna16_gemm, paged_decode, paged_chunk)
-    cfg, eng, launches = engine_phase(torch, counters)
+    # 3-4. the main path with the quantize-cold tier off, then on, then off
+    # at the tier-on budget; each run counts only its own launches
+    counters = {"wna16_gemm": (wna16_gemm, "launches"),
+                "paged_decode": (paged_decode, "launches"),
+                "paged_chunk": (paged_chunk, "launches"),
+                "paged_decode_q": (paged_decode, "quant_launches"),
+                "paged_chunk_q": (paged_chunk, "quant_launches")}
+    t0 = time.perf_counter()
+    model = build_model(torch)
+    log("engine phase, kv-quant tier off (quickstart budget: weights + 8 "
+        "KV blocks)")
+    _, launches = engine_phase(torch, model, counters, kv_blocks=8,
+                               kv_quant=False)
+    log("engine phase, kv-quant tier on (weights + 16 KV blocks: the "
+        "budget at which the quickstart trace engages the tier)")
+    eng, q_launches = engine_phase(torch, model, counters, kv_blocks=16,
+                                   kv_quant=True)
+    launches.update({k: q_launches[k]
+                     for k in ("paged_decode_q", "paged_chunk_q")})
+    log("engine phase, kv-quant tier off at the tier-on budget (weights + "
+        "16 KV blocks: the control that separates the tier's effect)")
+    engine_phase(torch, model, counters, kv_blocks=16, kv_quant=False)
+    log(f"engine phases {time.perf_counter() - t0:.1f} s")
 
-    # 4. step parity
+    # 5. step parity
     log(f"step parity (kernels vs plain, tolerance {LOGIT_TOL} x "
         "max|logit|)")
-    parity_phase(torch, cfg, eng)
+    t0 = time.perf_counter()
+    parity_phase(torch, model[0], eng)
+    log(f"step parity {time.perf_counter() - t0:.1f} s")
 
     # the representative main-path case of each kernel, errors over all cases
     main_case = {"wna16_gemm": "wna16 M=8 K=4096 N=11008 int4",
                  "paged_decode": ("decode B=8 ctx=2048 H=32 KVH=32 w=0 "
                                   "cap=0.0 fused=True"),
                  "paged_chunk": ("chunk Cp=256 pos0=200 H=32 KVH=32 w=0 "
-                                 "cap=0.0 fused=True")}
+                                 "cap=0.0 fused=True"),
+                 "paged_decode_q": ("decode B=8 ctx=2048 H=32 KVH=32 w=0 "
+                                    "cap=0.0 fused=True int8"),
+                 "paged_chunk_q": ("chunk Cp=256 pos0=200 H=32 KVH=32 w=0 "
+                                   "cap=0.0 fused=True int8")}
     csrc = "src/repro_torch/kernels/csrc/"
     where = {"wna16_gemm": (csrc + "wna16_gemm.cu",
                             "src/repro/kernels/wna16_gemm.py:81"),
              "paged_decode": (csrc + "paged_attention.cu",
                               "src/repro/kernels/paged_attention.py:38"),
              "paged_chunk": (csrc + "paged_attention.cu",
-                             "src/repro/kernels/paged_attention.py:250")}
+                             "src/repro/kernels/paged_attention.py:250"),
+             "paged_decode_q": (csrc + "paged_attention.cu",
+                                "src/repro/kernels/paged_attention.py:78"),
+             "paged_chunk_q": (csrc + "paged_attention.cu",
+                               "src/repro/kernels/paged_attention.py:315")}
     line = []
     for name, case in main_case.items():
         rows = [r for r in results if r["kernel"] == name]

@@ -6,7 +6,9 @@ result into the port's tensors, so the port never imports ``repro`` or
 jax. A quantized leaf arrives as any object with the JAX ``QTensor``'s
 fields — ``packed``, ``scales``, ``zeros``, ``inv_act`` as numpy arrays and
 ``bits``, ``group``, ``K``, ``N``, ``out_dtype``, ``use_kernel`` — and
-becomes a :class:`~repro_torch.quant.QTensor`.
+becomes a :class:`~repro_torch.quant.QTensor`. A JAX ``PagedKVPool``'s
+device state (fp pools, quantized-KV sidecar, ``qbits``) crosses with
+:func:`copy_pool_state`.
 """
 from __future__ import annotations
 
@@ -61,6 +63,29 @@ def to_torch(tree, device="cuda"):
     if tree is None or isinstance(tree, (bool, int, float, str)):
         return tree
     return array_to_torch(tree, device)
+
+
+_POOL_STATE = ("k", "v", "qk", "qv", "k_scale", "v_scale", "k_zero",
+               "v_zero")
+
+
+def copy_pool_state(src, dst) -> None:
+    """Give the port's pool ``dst`` the device state of ``src``, any object
+    with the JAX ``PagedKVPool``'s fields as numpy-convertible arrays: the
+    fp pools ``k``/``v``, the quantized-KV sidecar (int8 mirrors
+    ``qk``/``qv``, float32 ``k_scale``/``v_scale``/``k_zero``/``v_zero``
+    rows; None while ``src`` has none) and the ``qbits`` host map. The two
+    pools must have the same shape; the allocator is not copied."""
+    if tuple(np.shape(src.k)) != tuple(dst.k.shape):
+        raise ValueError(f"pool shapes differ: {np.shape(src.k)} vs "
+                         f"{tuple(dst.k.shape)}")
+    for name in _POOL_STATE:
+        a = getattr(src, name)
+        t = None if a is None else array_to_torch(a, dst.device)
+        if name in ("k", "v"):
+            t = t.to(dst.dtype)
+        setattr(dst, name, t)
+    dst.qbits = dict(src.qbits)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -10,9 +10,10 @@ engine's device through the kernel routes — tokens are real) or ``sim``
 (token ids fabricated; identical control path).
 
 This is the JAX package's engine with its host logic copied unchanged; the
-device work (pool, model steps, argmax) is torch on ``device``. The
-quantized-KV relief tier (``KVQuantConfig(enabled=True)``) raises: its
-kernel lane is not ported yet (ROADMAP queue 2).
+device work (pool, model steps, argmax) is torch on ``device``. With the
+quantized-KV relief tier on (``KVQuantConfig(enabled=True)``), the pool's
+sidecar bundle rides every decode and chunk step, where the attention
+kernels' KVQ lane dequantizes the quantized blocks.
 
 Policies: ``morph`` (the paper's system), ``static_fp16`` and ``static_int4``
 (the paper's two baselines, same engine, morphing disabled).
@@ -214,10 +215,6 @@ class MorphServeEngine:
     def __init__(self, cfg: ModelConfig, params, serving: ServingConfig,
                  ecfg: EngineConfig, *, swap_order: Optional[Sequence[int]] = None,
                  fault_injector=None, device="cuda"):
-        if ecfg.kv_quant.enabled:
-            raise NotImplementedError(
-                "KVQuantConfig(enabled=True): the quantized-KV lane of the "
-                "attention kernels is not ported yet — ROADMAP queue 2")
         # resolves "cuda" to the current card (and raises without one)
         self.device = torch.empty(0, device=device).device
         if ecfg.compute == "real":
@@ -321,7 +318,8 @@ class MorphServeEngine:
 
         # --- execution + cost ------------------------------------------------
         if ecfg.compute == "real":
-            self.exec = model_exec.ModelExec(cfg, params, self.kinds)
+            self.exec = model_exec.ModelExec(cfg, params, self.kinds,
+                                             kv_quant=self._kv_quant_on)
         else:
             self.exec = None
         self.cost = CostModel(cfg, ecfg.hw, block_size=bs)
@@ -1058,7 +1056,8 @@ class MorphServeEngine:
         table[:len(ids)] = ids
         logits = self.exec.prefill_chunk(
             self.actuator.layer_list(), self._dev(toks), pos0,
-            self.pool.k, self.pool.v, self._dev(table))
+            self.pool.k, self.pool.v, self._dev(table),
+            self.pool.kv_quant_bundle())
         if pos0 + clen == r.prompt_len:
             return int(torch.argmax(logits[clen - 1]))
         return None
@@ -1239,7 +1238,8 @@ class MorphServeEngine:
             tables[r.slot, :len(ids)] = ids
         logits = self.exec.decode(self.actuator.layer_list(),
                                   self._dev(tokens), self._dev(pos),
-                                  self.pool.k, self.pool.v, self._dev(tables))
+                                  self.pool.k, self.pool.v, self._dev(tables),
+                                  self.pool.kv_quant_bundle())
         toks = torch.argmax(logits, dim=-1).cpu().numpy()
         for r in run:
             r.generated.append(int(toks[r.slot]))
@@ -1302,7 +1302,9 @@ class MorphServeEngine:
         alloc.free = [b for b in alloc.free if b not in taken] + src
         heapq.heapify(alloc.free)
         if self.ec.compute == "real":
-            # one in-place device gather/scatter for the moved blocks
+            # one in-place device gather/scatter for the moved blocks; the
+            # quantized payload and sidecar ride the move and the vacated
+            # rows' scale/zero are zeroed
             self.pool.move_blocks(src, [mapping[b] for b in src])
         for s in src:
             if s in self.pool.qbits:
@@ -1488,7 +1490,13 @@ class MorphServeEngine:
             if excess > 0:
                 freed = self.prefix_cache.evict_lru(excess)
                 if freed:
-                    self.pool.alloc.release(freed)
+                    # through the one engine-side free, which clears a
+                    # quantized block's sidecar state before the allocator
+                    # can hand it out again (the JAX engine releases these
+                    # directly, so a re-allocated quantized block keeps its
+                    # scale/zero and the kernels' FMA adds the stale payload
+                    # to the new owner's KV)
+                    self._free_blocks(freed)
                     self.prefix_evicted_for_pressure += len(freed)
                     # reflect the relief immediately (the EWMA lags): only
                     # residual pressure should escalate to tiers 2/3

@@ -109,11 +109,17 @@ class PagedKVPool:
     counts device pool copies. ``bucket_capacity=False`` gives a
     copy-per-resize pool (capacity == num_blocks at all times).
 
-    The quantized-KV sidecar of the JAX package (int8 mirrors + per-block
-    scale/zero) is not ported yet (ROADMAP queue 2). ``qbits``, the host map
-    of quantized blocks, is kept so the engine's accounting reads the same;
-    it stays empty in real compute, and the device-side quantize/transfer
-    methods raise.
+    **Quantized-KV sidecar** (the quantize-cold relief tier), allocated on
+    the first real quantize so that quant-off engines pay nothing: int8
+    mirrors ``qk``/``qv`` of the pools and one float32 (scale, zero) pair
+    per (layer, block) for k and for v, all on the pool's device. A
+    quantized block's fp slot is zeroed and its sidecar filled; an fp
+    block's scale/zero rows are zero, so the kernels' branch-free FMA
+    ``fp + q * scale + zero`` is exact for both. ``qbits`` is the host map
+    of quantized blocks (block id → width). int4 values are stored unpacked
+    in the int8 mirror. The mirror is allocated at the full pool shape, as
+    in the JAX package: the ledger books a quantized block at the reduced
+    rate, but the device holds both the fp slot and the mirror.
     """
 
     def __init__(self, cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -134,6 +140,9 @@ class PagedKVPool:
         self.k = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=dtype, device=self.device)
         self.alloc = BlockAllocator(num_blocks)
+        self.qk = self.qv = None
+        self.k_scale = self.v_scale = None
+        self.k_zero = self.v_zero = None
         self.qbits: Dict[int, int] = {}   # block id -> quant width (host map)
 
     def _cap_bucket(self, n: int) -> int:
@@ -178,6 +187,7 @@ class PagedKVPool:
             if new_cap > self.capacity:
                 self.k = self._pad(self.k, new_cap)
                 self.v = self._pad(self.v, new_cap)
+                self._resize_sidecar(new_cap)
                 self.capacity = new_cap
                 self.copies += 1
             self.alloc.grow(new_num_blocks)
@@ -188,6 +198,7 @@ class PagedKVPool:
         if new_cap < self.capacity:
             self.k = self.k[:, :new_cap].contiguous()
             self.v = self.v[:, :new_cap].contiguous()
+            self._resize_sidecar(new_cap)
             self.capacity = new_cap
             self.copies += 1
         return True
@@ -199,8 +210,37 @@ class PagedKVPool:
         return out
 
     # ------------------------------------------------------------------
-    # quantized-block host map (the sidecar's device lane is not ported)
+    # quantize-cold tier: in-place per-block compression + sidecar params
     # ------------------------------------------------------------------
+    _SIDECAR = ("qk", "qv", "k_scale", "v_scale", "k_zero", "v_zero")
+    _PARAMS = ("k_scale", "v_scale", "k_zero", "v_zero")
+
+    def _resize_sidecar(self, new_cap: int) -> None:
+        """Pad (fresh rows are zero == fp semantics) or slice the sidecar
+        with the pools on bucket crossings."""
+        if self.qk is None:
+            return
+        for name in self._SIDECAR:
+            t = getattr(self, name)
+            setattr(self, name, self._pad(t, new_cap) if new_cap > t.shape[1]
+                    else t[:, :new_cap].contiguous())
+
+    def _ensure_sidecar(self) -> None:
+        if self.qk is not None:
+            return
+        self.qk = torch.zeros(self.k.shape, dtype=torch.int8,
+                              device=self.device)
+        self.qv = torch.zeros_like(self.qk)
+        for name in self._PARAMS:          # four tensors: each updates in place
+            setattr(self, name, torch.zeros(
+                (self.k.shape[0], self.capacity), dtype=torch.float32,
+                device=self.device))
+
+    def _lanes(self):
+        """(fp pool, int8 mirror, scale, zero) for k and for v."""
+        return ((self.k, self.qk, self.k_scale, self.k_zero),
+                (self.v, self.qv, self.v_scale, self.v_zero))
+
     def mark_quantized(self, ids: Sequence[int], bits: int = 8) -> List[int]:
         """Accounting-only quantize (sim compute): tracks which blocks are
         held quantized without touching device tensors. Returns the ids
@@ -217,36 +257,86 @@ class PagedKVPool:
             del self.qbits[b]
         return done
 
+    def quantize_blocks(self, ids: Sequence[int], bits: int = 8) -> List[int]:
+        """Compress the listed blocks in place: fill the int8 mirror and the
+        per-(layer, block) scale/zero, zero the fp slot. Already-quantized
+        ids are skipped; returns the ids actually compressed."""
+        fresh = [b for b in ids if b not in self.qbits]
+        if not fresh:
+            return []
+        kv_codec.qmax_for_bits(bits)
+        self._ensure_sidecar()
+        idx = self._ids(fresh)
+        for fp, qm, sc, zp in self._lanes():
+            q, s, z = kv_codec.affine_quantize_torch(fp[:, idx], bits)
+            qm[:, idx] = q
+            sc[:, idx] = s
+            zp[:, idx] = z
+            fp[:, idx] = 0
+        return self.mark_quantized(fresh, bits)
+
+    def dequantize_blocks(self, ids: Sequence[int]) -> List[int]:
+        """Restore the listed blocks to fp in place (quantize inverse):
+        write ``q * scale + zero`` back to the fp slot, zero the sidecar
+        rows."""
+        held = [b for b in ids if b in self.qbits]
+        if not held or self.qk is None:
+            return self.mark_dequantized(held)
+        idx = self._ids(held)
+        for fp, qm, sc, zp in self._lanes():
+            fp[:, idx] = kv_codec.affine_dequantize_torch(
+                qm[:, idx], sc[:, idx], zp[:, idx], self.dtype)
+            sc[:, idx] = 0.0
+            zp[:, idx] = 0.0
+        return self.mark_dequantized(held)
+
     def clear_quant(self, ids: Sequence[int]) -> List[int]:
-        """Forget the quant state of *freed* blocks."""
-        return self.mark_dequantized([b for b in ids if b in self.qbits])
+        """Forget the quant state of *freed* blocks. Only the scale/zero
+        rows are zeroed: with scale = zero = 0 the stale int8 payload adds
+        nothing to the kernels' FMA, and the fp slot was zeroed at quantize
+        time (fresh appends overwrite it)."""
+        held = [b for b in ids if b in self.qbits]
+        if not held:
+            return []
+        if self.qk is not None:
+            idx = self._ids(held)
+            for name in self._PARAMS:
+                getattr(self, name)[:, idx] = 0.0
+        return self.mark_dequantized(held)
 
     def kv_quant_bundle(self):
-        """The kernels' quantized-KV operand bundle: always None here, the
-        quantized lane of the kernels is not ported yet."""
-        return None
-
-    def _no_quant_lane(self, *_, **__):
-        raise NotImplementedError(
-            "the quantized-KV lane (pool sidecar + in-kernel dequant) is not "
-            "ported yet — ROADMAP queue 2")
-
-    quantize_blocks = dequantize_blocks = _no_quant_lane
-    gather_quant_blocks = scatter_quant_blocks = _no_quant_lane
+        """The kernels' ``(qk, qv, k_scale, v_scale, k_zero, v_zero)``
+        operand bundle (L-leading tensors, sliced per layer by the caller),
+        or None while no block is quantized, so that quant-idle steps run
+        the plain walk."""
+        if self.qk is None or not self.qbits:
+            return None
+        return tuple(getattr(self, name) for name in self._SIDECAR)
 
     def move_block(self, src: int, dst: int) -> None:
-        """Copy block ``src``'s KV (and its quant-map entry) onto ``dst`` in
-        place — tail-compaction support. The caller frees ``src``."""
+        """Copy block ``src``'s full state (fp slot, quant sidecar and its
+        quant-map entry) onto ``dst`` in place — tail-compaction support.
+        The caller frees ``src``."""
         self.move_blocks([src], [dst])
         if src in self.qbits:
             self.qbits[dst] = self.qbits.pop(src)
 
     def move_blocks(self, src: Sequence[int], dst: Sequence[int]) -> None:
-        """In-place ``pool[:, dst] = pool[:, src]`` for both pools (device
-        contents only; the caller keeps the host maps)."""
+        """In-place ``pool[:, dst] = pool[:, src]`` for both pools and, once
+        allocated, the sidecar (int8 payload and scale/zero rows ride the
+        move). The vacated rows' scale/zero are zeroed, so a freed id reads
+        as pure fp through the kernels' FMA after realloc. Device contents
+        only: the caller keeps the host maps (``qbits`` included)."""
         si, di = self._ids(src), self._ids(dst)
-        self.k[:, di] = self.k[:, si]
-        self.v[:, di] = self.v[:, si]
+        names = ("k", "v") + (self._SIDECAR if self.qk is not None else ())
+        for name in names:
+            t = getattr(self, name)
+            t[:, di] = t[:, si]
+        vacated = sorted(set(src) - set(dst))
+        if self.qk is not None and vacated:
+            vi = self._ids(vacated)
+            for name in self._PARAMS:
+                getattr(self, name)[:, vi] = 0.0
 
     # ------------------------------------------------------------------
     # cross-replica state transfer (request migration / prefix migration)
@@ -269,6 +359,40 @@ class PagedKVPool:
         if v is not None:
             self.v[:, idx] = torch.as_tensor(np.asarray(v)).to(self.device,
                                                                self.dtype)
+
+    def gather_quant_blocks(self, ids: Sequence[int]):
+        """Host copies of the listed *quantized* blocks' compressed state:
+        ``(qk, qv, k_scale, v_scale, k_zero, v_zero)`` numpy arrays with
+        block axis ``len(ids)``. The export half of round-trip-free
+        migration: the int8 payload and the sidecar params travel as they
+        are, never dequantized."""
+        if self.qk is None or not all(b in self.qbits for b in ids):
+            raise ValueError("gather_quant_blocks on non-quantized blocks")
+        idx = self._ids(ids)
+        return tuple(getattr(self, name)[:, idx].cpu().numpy()
+                     for name in self._SIDECAR)
+
+    def scatter_quant_blocks(self, ids: Sequence[int], payload,
+                             bits: int = 8) -> None:
+        """Import half of round-trip-free migration: write a
+        ``gather_quant_blocks`` payload into freshly-allocated local ids, in
+        place. The blocks arrive (and stay) quantized, fp slots zeroed."""
+        self._ensure_sidecar()
+        idx = self._ids(ids)
+        qk, qv, ks, vs, kz, vz = payload
+        for fp, qm, sc, zp, q, s, z in (
+                self._lanes()[0] + (qk, ks, kz),
+                self._lanes()[1] + (qv, vs, vz)):
+            if q is None:
+                continue
+            qm[:, idx] = torch.as_tensor(np.asarray(q, np.int8)).to(
+                self.device)
+            sc[:, idx] = torch.as_tensor(np.asarray(s, np.float32)).to(
+                self.device)
+            zp[:, idx] = torch.as_tensor(np.asarray(z, np.float32)).to(
+                self.device)
+            fp[:, idx] = 0
+        self.mark_quantized(list(ids), bits)
 
 
 class PrefixCacheEntry:

@@ -17,6 +17,11 @@ only logits.
 version (``kernels/ref.py``) instead of the CUDA kernel; the step-parity
 checks use it to hold a whole step through the kernels against the same
 step without them.
+
+The decode and chunk steps take the pool's quantized-KV bundle ``kvq``
+(L-leading tensors, ``PagedKVPool.kv_quant_bundle``; None while no block is
+quantized) and hand each layer its slice. Whole-prompt prefill takes none:
+it writes only freshly allocated blocks and reads no pool KV.
 """
 from __future__ import annotations
 
@@ -39,14 +44,23 @@ def pad_bucket(n: int, quantum: int = 64) -> int:
     return b
 
 
-def build_attention_specs(cfg: ModelConfig, kinds) -> tuple:
+def build_attention_specs(cfg: ModelConfig, kinds,
+                          kv_quant: bool = False) -> tuple:
     """One :class:`~repro_torch.kernels.ops.AttentionSpec` per layer, built
-    once at :class:`ModelExec` construction."""
+    once at :class:`ModelExec` construction. ``kv_quant=True`` marks the
+    layers' pools as ones that may hold quantized blocks; without it a step
+    given a bundle raises."""
     return tuple(
         ops.AttentionSpec(window=lm.layer_window(cfg, i),
                           softcap=cfg.logit_softcap,
-                          q_heads=cfg.n_heads, kv_heads=cfg.n_kv_heads)
+                          q_heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                          kv_quant=kv_quant)
         for i, _ in enumerate(kinds))
+
+
+def _layer_kvq(kvq, li):
+    """Layer ``li``'s slice of the pool's L-leading quantized-KV bundle."""
+    return None if kvq is None else tuple(a[li] for a in kvq)
 
 
 def _mlp_residual(p, cfg, x, h, attn_out, plain):
@@ -69,10 +83,11 @@ def _append_kv(pool_k, pool_v, li, k_new, v_new, blk, off):
 
 
 def _paged_gqa_decode(p, cfg, x, pool_k, pool_v, li, tables, pos, spec,
-                      plain=False):
+                      kvq=None, plain=False):
     """x: (slots, 1, D); pos: (slots,) absolute position of the new token.
-    The attention read is the decode kernel route (K2) over the
-    caller-truncated width of ``tables``."""
+    The attention read is the decode kernel route (K2, or K2-q with the
+    layer's quantized-KV slice ``kvq``) over the caller-truncated width of
+    ``tables``."""
     slots = x.shape[0]
     bs = pool_k.shape[2]
     q, k, v = L.gqa_project_qkv(p, cfg, x, pos[:, None], plain=plain)
@@ -81,23 +96,25 @@ def _paged_gqa_decode(p, cfg, x, pool_k, pool_v, li, tables, pos, spec,
     _append_kv(pool_k, pool_v, li, k[:, 0], v[:, 0], blk, pos_l % bs)
     out = ops.paged_decode_attention(
         q[:, 0], k[:, 0], v[:, 0], pool_k[li], pool_v[li], tables, pos, spec,
-        plain=plain)
+        kv_quant=kvq, plain=plain)
     return qlinear.matmul(out.reshape(slots, 1, -1), p["wo"],
                           bias=p.get("bo"), plain=plain)
 
 
 def paged_decode_step(cfg: ModelConfig, kinds, specs, misc, layer_params,
-                      tokens, pos, pool_k, pool_v, tables, *,
+                      tokens, pos, pool_k, pool_v, tables, kvq=None, *,
                       plain: bool = False):
     """tokens: (slots, 1); pos: (slots,) int32 absolute index of the token
     being decoded (its RoPE position and KV append slot); tables:
-    (slots, nb) int32. Appends each layer's KV to the pools in place.
-    Returns logits (slots, V)."""
+    (slots, nb) int32; ``kvq``: the pool's quantized-KV bundle or None.
+    Appends each layer's KV to the pools in place. Returns logits
+    (slots, V)."""
     x = lm.embed_tokens(cfg, misc, tokens)
     for i, p in enumerate(layer_params):
         h = L.apply_norm(cfg.norm, p["ln1"], x)
         attn_out = _paged_gqa_decode(p["attn"], cfg, h, pool_k, pool_v, i,
-                                     tables, pos, specs[i], plain)
+                                     tables, pos, specs[i],
+                                     _layer_kvq(kvq, i), plain)
         x = _mlp_residual(p, cfg, x, h, attn_out, plain)
     return lm.unembed(cfg, misc, x)[:, 0]
 
@@ -156,7 +173,7 @@ def paged_prefill_batch(cfg: ModelConfig, kinds, misc, layer_params, tokens,
 # Chunked prefill
 # ---------------------------------------------------------------------------
 def _chunk_gqa_attention(p, cfg, x, positions, pool_k, pool_v, li, tables,
-                         blk, off, pos0, spec, plain=False):
+                         blk, off, pos0, spec, kvq=None, plain=False):
     """Causal chunk attention against already-paged context (batch 1).
 
     x: (1, Cp, D) chunk activations at absolute positions ``positions``.
@@ -166,21 +183,24 @@ def _chunk_gqa_attention(p, cfg, x, positions, pool_k, pool_v, li, tables,
     (k, v) as operands: the walk covers only the already-paged context
     ``< pos0`` and never reads back what was just scattered. The operands
     are cast to the pool dtype first, so later chunks and decode read the
-    same rounding the fold used."""
+    same rounding the fold used. ``kvq``, the layer's quantized-KV slice,
+    dequantizes the walked context (K3-q); the chunk's own KV is always
+    fp."""
     B, Cp, _ = x.shape
     q, k, v = L.gqa_project_qkv(p, cfg, x, positions, plain=plain)
     pool_k[li, blk, off] = k[0].to(pool_k.dtype)
     pool_v[li, blk, off] = v[0].to(pool_v.dtype)
     out = ops.paged_prefill_attention(q, pool_k[li], pool_v[li],
                                       tables[None], pos0, spec,
-                                      k_new=k, v_new=v, plain=plain)
+                                      k_new=k, v_new=v, kv_quant=kvq,
+                                      plain=plain)
     return qlinear.matmul(out.reshape(B, Cp, -1), p["wo"], bias=p.get("bo"),
                           plain=plain)
 
 
 def paged_prefill_chunk(cfg: ModelConfig, kinds, specs, misc, layer_params,
-                        tokens, pos0: int, pool_k, pool_v, tables, *,
-                        plain: bool = False):
+                        tokens, pos0: int, pool_k, pool_v, tables, kvq=None,
+                        *, plain: bool = False):
     """Prefill ONE chunk of ONE request against partially-paged context.
 
     tokens: (1, Cp) — the chunk, end-padded to a bucketed length; pos0: the
@@ -188,8 +208,9 @@ def paged_prefill_chunk(cfg: ModelConfig, kinds, specs, misc, layer_params,
     (nb,) int32 block table whose span ``nb * bs`` covers ``pos0 + Cp``
     positions (scratch 0 where the request owns fewer blocks). Each layer
     appends the chunk's KV into the pool and runs causal attention of the
-    chunk against everything paged so far (Sarathi-style chunked prefill).
-    Returns chunk logits (Cp, V)."""
+    chunk against everything paged so far (Sarathi-style chunked prefill);
+    ``kvq`` is the pool's quantized-KV bundle or None. Returns chunk logits
+    (Cp, V)."""
     bs = pool_k.shape[2]
     Cp = tokens.shape[1]
     abs_pos = pos0 + torch.arange(Cp, device=tokens.device)
@@ -201,7 +222,7 @@ def paged_prefill_chunk(cfg: ModelConfig, kinds, specs, misc, layer_params,
         h = L.apply_norm(cfg.norm, p["ln1"], x)
         attn_out = _chunk_gqa_attention(p["attn"], cfg, h, positions, pool_k,
                                         pool_v, i, tables, blk, off, pos0,
-                                        specs[i], plain)
+                                        specs[i], _layer_kvq(kvq, i), plain)
         x = _mlp_residual(p, cfg, x, h, attn_out, plain)
     return lm.unembed(cfg, misc, x)[0]
 
@@ -211,22 +232,22 @@ class ModelExec:
     attention specs, embedding/head params) to the step functions; the
     per-level layer list is passed per call. Runs under ``no_grad``."""
 
-    def __init__(self, cfg: ModelConfig, params, kinds):
+    def __init__(self, cfg: ModelConfig, params, kinds, kv_quant=False):
         self.cfg = cfg
         self.kinds = tuple(kinds)
         self.misc = {k: v for k, v in params.items() if k != "segments"}
-        self.specs = build_attention_specs(cfg, self.kinds)
+        self.specs = build_attention_specs(cfg, self.kinds, kv_quant)
 
     @staticmethod
     def _lp(layer_list) -> List:
         return [p for _, p in layer_list]
 
     @torch.no_grad()
-    def decode(self, layer_list, tokens, pos, pool_k, pool_v, tables, *,
-               plain: bool = False):
+    def decode(self, layer_list, tokens, pos, pool_k, pool_v, tables,
+               kvq=None, *, plain: bool = False):
         return paged_decode_step(self.cfg, self.kinds, self.specs, self.misc,
                                  self._lp(layer_list), tokens, pos, pool_k,
-                                 pool_v, tables, plain=plain)
+                                 pool_v, tables, kvq, plain=plain)
 
     @torch.no_grad()
     def prefill(self, layer_list, tokens, pool_k, pool_v, block_ids, *,
@@ -244,7 +265,8 @@ class ModelExec:
 
     @torch.no_grad()
     def prefill_chunk(self, layer_list, tokens, pos0: int, pool_k, pool_v,
-                      table, *, plain: bool = False):
+                      table, kvq=None, *, plain: bool = False):
         return paged_prefill_chunk(self.cfg, self.kinds, self.specs,
                                    self.misc, self._lp(layer_list), tokens,
-                                   pos0, pool_k, pool_v, table, plain=plain)
+                                   pos0, pool_k, pool_v, table, kvq,
+                                   plain=plain)

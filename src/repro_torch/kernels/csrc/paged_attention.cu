@@ -4,7 +4,9 @@
 // Replaces the Pallas TPU kernels `_paged_attn_kernel` (via `_paged_call`:
 // `paged_attention_fused`, `paged_attention`) and `_chunk_attn_kernel`
 // (via `_chunk_call`: `paged_chunk_attention_fused`,
-// `paged_chunk_attention`) of src/repro/kernels/paged_attention.py.
+// `paged_chunk_attention`) of src/repro/kernels/paged_attention.py, each
+// with and without their quantized-KV lane (`kv_quant`, FMA at `:78-82`
+// and `:315-319` there).
 //
 // Layout (the JAX package's): pools (cap, bs, KVH, Dh); block tables
 // (B, nb) int32 whose entries past a sequence's live length are scratch
@@ -29,6 +31,20 @@
 // still empty never picks up exp(0) weight. Masked logits are -1e30 and the
 // denominator floor is 1e-30, as on the TPU. Accumulation is float; the
 // output is written in q's dtype.
+//
+// Quantized-KV lane (template flag KVQ; the instantiation without it is the
+// plain walk). The quantize-cold tier keeps int8 mirrors qk/qv of the pools
+// (cap, bs, KVH, Dh) and one float (scale, zero) per pool block for k and
+// for v. A quantized block's fp slot is zero; an fp block's scale and zero
+// are zero. So every visited element is dequantized with the branch-free
+// FMA k = fp_slot + q * scale + zero, exact for both kinds of block, with
+// no per-block flag. The four per-block floats are read once per visited
+// block (the same address for every thread: a broadcast). The lane reads
+// the fp slot and the int8 mirror of every visited block, 5 bytes per
+// float32 element instead of 4: K2-q is bounded by those bytes. K2 applies
+// the FMA where a warp loads its key/value row, K3 where the CTA stages a
+// pool block in shared memory, so K3's inner loop is unchanged; the
+// chunk's own fused KV is always fp.
 //
 // K2: one CTA per (kv head, sequence), four warps. Each warp walks every
 // fourth pool block independently with its own (m, l, acc) for the G rows,
@@ -78,14 +94,55 @@ __device__ __forceinline__ float cap_logit(float s, float softcap) {
   return softcap > 0.f ? tanhf(s / softcap) * softcap : s;
 }
 
-template <typename TQ, typename TKV, int DPL>
+// The quantized-KV sidecar of one layer; null pointers when KVQ is false.
+struct KVQuant {
+  const int8_t* qk;
+  const int8_t* qv;
+  const float* k_scale;
+  const float* v_scale;
+  const float* k_zero;
+  const float* v_zero;
+};
+
+// per-block dequant parameters (all zero without the lane)
+struct BlockDequant {
+  float ks = 0.f, kz = 0.f, vs = 0.f, vz = 0.f;
+};
+
+template <bool KVQ>
+__device__ __forceinline__ BlockDequant block_dequant(const KVQuant& kvq, int blk) {
+  BlockDequant d;
+  if constexpr (KVQ) {
+    d.ks = kvq.k_scale[blk];
+    d.kz = kvq.k_zero[blk];
+    d.vs = kvq.v_scale[blk];
+    d.vz = kvq.v_zero[blk];
+  }
+  return d;
+}
+
+// pool element `off` of k and v as float, dequantized on the KVQ lane
+template <bool KVQ, typename TKV>
+__device__ __forceinline__ void load_kv(const TKV* __restrict__ k_pool,
+                                        const TKV* __restrict__ v_pool,
+                                        const KVQuant& kvq, const BlockDequant& d,
+                                        size_t off, float& k, float& v) {
+  k = morph::to_f32(k_pool[off]);
+  v = morph::to_f32(v_pool[off]);
+  if constexpr (KVQ) {
+    k = k + static_cast<float>(kvq.qk[off]) * d.ks + d.kz;
+    v = v + static_cast<float>(kvq.qv[off]) * d.vs + d.vz;
+  }
+}
+
+template <typename TQ, typename TKV, int DPL, bool KVQ>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
                     const TKV* __restrict__ v_pool, const TKV* __restrict__ k_new,
                     const TKV* __restrict__ v_new, const int* __restrict__ tables,
                     const int* __restrict__ lens, TQ* __restrict__ out, int H,
                     int KVH, int G, int bs, int nb_t, float scale, int window,
-                    float softcap, int fused_new) {
+                    float softcap, int fused_new, KVQuant kvq) {
   constexpr int Dh = DPL * 32;
   extern __shared__ float smem[];  // kWarps * G * (Dh + 2)
   const int h = blockIdx.x, b = blockIdx.y;
@@ -110,6 +167,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
   if (window > 0 && qpos - window + 1 > 0) first = (qpos - window + 1) / bs;
   for (int nb = first + warp; nb < n_blocks; nb += kWarps) {
     const int blk = tables[(size_t)b * nb_t + nb];
+    const BlockDequant dq = block_dequant<KVQ>(kvq, blk);
     for (int t = 0; t < bs; ++t) {
       const int pos = nb * bs + t;
       if (pos >= ctx) break;
@@ -117,10 +175,8 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
       const size_t off = (((size_t)blk * bs + t) * KVH + h) * Dh + lane * DPL;
       float kv[DPL], vv[DPL];
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        kv[i] = morph::to_f32(k_pool[off + i]);
-        vv[i] = morph::to_f32(v_pool[off + i]);
-      }
+      for (int i = 0; i < DPL; ++i)
+        load_kv<KVQ>(k_pool, v_pool, kvq, dq, off + i, kv[i], vv[i]);
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g >= G) break;
@@ -180,14 +236,14 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
   }
 }
 
-template <typename TQ, typename TKV, int DPL>
+template <typename TQ, typename TKV, int DPL, bool KVQ>
 __global__ void __launch_bounds__(kThreads)
 paged_chunk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
                    const TKV* __restrict__ v_pool, const TKV* __restrict__ k_new,
                    const TKV* __restrict__ v_new, const int* __restrict__ tables,
                    int pos0, TQ* __restrict__ out, int C, int H, int KVH, int G,
                    int bs, int nb_t, float scale, int window, float softcap,
-                   int fused_new) {
+                   int fused_new, KVQuant kvq) {
   constexpr int Dh = DPL * 32;
   extern __shared__ float smem[];  // ks[bs][Dh], vs[bs][Dh]
   float* ks = smem;
@@ -252,12 +308,12 @@ paged_chunk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
   if (window > 0 && q_first - window + 1 > 0) first = (q_first - window + 1) / bs;
   for (int nb = first; nb < n_blocks; ++nb) {
     const int blk = tables[(size_t)b * nb_t + nb];
+    const BlockDequant dq = block_dequant<KVQ>(kvq, blk);
     __syncthreads();
     for (int idx = threadIdx.x; idx < bs * Dh; idx += kThreads) {
       const int t = idx / Dh, d = idx - (idx / Dh) * Dh;
       const size_t off = (((size_t)blk * bs + t) * KVH + h) * Dh + d;
-      ks[idx] = morph::to_f32(k_pool[off]);
-      vs[idx] = morph::to_f32(v_pool[off]);
+      load_kv<KVQ>(k_pool, v_pool, kvq, dq, off, ks[idx], vs[idx]);
     }
     __syncthreads();
     for (int t = 0; t < bs; ++t) {
@@ -310,32 +366,49 @@ cudaError_t dispatch_dpl(int Dh, F&& f) {
   return cudaSuccess;
 }
 
+template <typename F>
+void dispatch_kvq(bool kvq, F&& f) {
+  if (kvq) f(std::true_type{});
+  else f(std::false_type{});
+}
+
 }  // namespace
 
 // C entry points. The wrappers have checked shapes, dtypes and contiguity;
-// k_new / v_new may be null when fused_new is 0. Each returns
+// k_new / v_new may be null when fused_new is 0, and the six quantized-KV
+// operands (qk, qv int8 like the pools; k/v scale and zero float (cap,))
+// are all null or all set: set selects the KVQ lane. Each returns
 // cudaGetLastError() after the launch.
 extern "C" int morph_paged_decode(const void* q, int q_dtype, const void* k_pool,
                                   const void* v_pool, int kv_dtype, const void* k_new,
                                   const void* v_new, const void* tables,
                                   const void* lens, void* out, int B, int H, int KVH,
                                   int Dh, int bs, int nb_t, float scale, int window,
-                                  float softcap, int fused_new, void* stream_ptr) {
+                                  float softcap, int fused_new, const void* qk,
+                                  const void* qv, const void* k_scale,
+                                  const void* v_scale, const void* k_zero,
+                                  const void* v_zero, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int G = H / KVH;
   if (G > kMaxG) return (int)cudaErrorInvalidValue;
+  const KVQuant kvq{static_cast<const int8_t*>(qk), static_cast<const int8_t*>(qv),
+                    static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                    static_cast<const float*>(k_zero), static_cast<const float*>(v_zero)};
   const size_t smem = (size_t)kWarps * G * (Dh + 2) * sizeof(float);
   cudaError_t err = cudaSuccess;
   MORPH_DISPATCH_DTYPE(q_dtype, TQ, {
     MORPH_DISPATCH_DTYPE(kv_dtype, TKV, {
       err = dispatch_dpl(Dh, [&](auto dpl) {
         constexpr int DPL = decltype(dpl)::value;
-        paged_decode_kernel<TQ, TKV, DPL><<<dim3(KVH, B), kThreads, smem, stream>>>(
-            static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
-            static_cast<const TKV*>(v_pool), static_cast<const TKV*>(k_new),
-            static_cast<const TKV*>(v_new), static_cast<const int*>(tables),
-            static_cast<const int*>(lens), static_cast<TQ*>(out), H, KVH, G, bs,
-            nb_t, scale, window, softcap, fused_new);
+        dispatch_kvq(qk != nullptr, [&](auto kvq_on) {
+          paged_decode_kernel<TQ, TKV, DPL, decltype(kvq_on)::value>
+              <<<dim3(KVH, B), kThreads, smem, stream>>>(
+                  static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
+                  static_cast<const TKV*>(v_pool), static_cast<const TKV*>(k_new),
+                  static_cast<const TKV*>(v_new), static_cast<const int*>(tables),
+                  static_cast<const int*>(lens), static_cast<TQ*>(out), H, KVH, G,
+                  bs, nb_t, scale, window, softcap, fused_new, kvq);
+        });
       });
     });
   });
@@ -348,9 +421,15 @@ extern "C" int morph_paged_chunk(const void* q, int q_dtype, const void* k_pool,
                                  const void* v_new, const void* tables, int pos0,
                                  void* out, int B, int C, int H, int KVH, int Dh,
                                  int bs, int nb_t, float scale, int window,
-                                 float softcap, int fused_new, void* stream_ptr) {
+                                 float softcap, int fused_new, const void* qk,
+                                 const void* qv, const void* k_scale,
+                                 const void* v_scale, const void* k_zero,
+                                 const void* v_zero, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int G = H / KVH;
+  const KVQuant kvq{static_cast<const int8_t*>(qk), static_cast<const int8_t*>(qv),
+                    static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                    static_cast<const float*>(k_zero), static_cast<const float*>(v_zero)};
   const size_t smem = (size_t)2 * bs * Dh * sizeof(float);
   const dim3 grid((C * G + kTileRows - 1) / kTileRows, KVH, B);
   cudaError_t err = cudaSuccess;
@@ -358,12 +437,15 @@ extern "C" int morph_paged_chunk(const void* q, int q_dtype, const void* k_pool,
     MORPH_DISPATCH_DTYPE(kv_dtype, TKV, {
       err = dispatch_dpl(Dh, [&](auto dpl) {
         constexpr int DPL = decltype(dpl)::value;
-        paged_chunk_kernel<TQ, TKV, DPL><<<grid, kThreads, smem, stream>>>(
-            static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
-            static_cast<const TKV*>(v_pool), static_cast<const TKV*>(k_new),
-            static_cast<const TKV*>(v_new), static_cast<const int*>(tables), pos0,
-            static_cast<TQ*>(out), C, H, KVH, G, bs, nb_t, scale, window, softcap,
-            fused_new);
+        dispatch_kvq(qk != nullptr, [&](auto kvq_on) {
+          paged_chunk_kernel<TQ, TKV, DPL, decltype(kvq_on)::value>
+              <<<grid, kThreads, smem, stream>>>(
+                  static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
+                  static_cast<const TKV*>(v_pool), static_cast<const TKV*>(k_new),
+                  static_cast<const TKV*>(v_new), static_cast<const int*>(tables),
+                  pos0, static_cast<TQ*>(out), C, H, KVH, G, bs, nb_t, scale,
+                  window, softcap, fused_new, kvq);
+        });
       });
     });
   });

@@ -10,6 +10,12 @@ on any device; only the step-parity checks use it.
 One :class:`AttentionSpec` carries the static attention configuration of a
 layer (window, softcap, scale, head layout), built once per layer by
 ``engine.model_exec.build_attention_specs``.
+
+The attention routes take the layer's quantized-KV bundle ``kv_quant=(qk,
+qv, k_scale, v_scale, k_zero, v_zero)`` (the pool's sidecar, see
+``engine.kv_cache.PagedKVPool.kv_quant_bundle``) or None while no block is
+quantized; on a CUDA tensor a bundle selects the kernels' KVQ lane. A
+bundle reaching a spec built without ``kv_quant`` raises.
 """
 from __future__ import annotations
 
@@ -27,15 +33,22 @@ class AttentionSpec:
 
     ``scale=None`` means ``head_dim ** -0.5``. ``q_heads``/``kv_heads`` are
     the head layout (GQA group = q_heads // kv_heads), checked when given.
-    The JAX spec's MLA ``latent_dv`` and ``kv_quant`` lanes are not ported
-    yet (ROADMAP queue 2)."""
+    ``kv_quant`` marks the layer's pool as one that may hold quantized
+    blocks (the engine's quantize-cold tier is on); the bundle itself is
+    passed per call, and a bundle given to a spec without ``kv_quant`` is
+    refused. The JAX spec's MLA ``latent_dv`` lane is not ported yet
+    (ROADMAP queue 2)."""
     window: int = 0
     softcap: float = 0.0
     scale: Optional[float] = None
     q_heads: Optional[int] = None
     kv_heads: Optional[int] = None
+    kv_quant: bool = False
 
-    def validate(self, q, k_pool) -> None:
+    def validate(self, q, k_pool, kv_quant=None) -> None:
+        if kv_quant is not None and not self.kv_quant:
+            raise ValueError("a kv_quant bundle reached an AttentionSpec "
+                             "built with kv_quant=False")
         if self.q_heads is not None and q.shape[-2] != self.q_heads:
             raise ValueError(f"q heads {q.shape[-2]} != spec {self.q_heads}")
         if self.kv_heads is not None and k_pool.shape[2] != self.kv_heads:
@@ -78,13 +91,14 @@ def wna16_matmul(x2: torch.Tensor, qt, *, bias=None,
 # paged attention (K2 decode, K3 chunk prefill)
 # ---------------------------------------------------------------------------
 def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
-                    spec: AttentionSpec = None, *, plain: bool = False):
+                    spec: AttentionSpec = None, *, kv_quant=None,
+                    plain: bool = False):
     """Context-only decode read: every ``context_lens[b]`` token lives in
     the pool and the query is the one at ``context_lens[b] - 1``."""
     spec = spec or AttentionSpec()
-    spec.validate(q, k_pool)
+    spec.validate(q, k_pool, kv_quant)
     kw = dict(scale=spec.resolved_scale(q.shape[-1]), window=spec.window,
-              softcap=spec.softcap, fused_new=False)
+              softcap=spec.softcap, fused_new=False, kv_quant=kv_quant)
     if not _on_card(q, plain):
         return ref.paged_decode_ref(q, None, None, k_pool, v_pool,
                                     block_tables, context_lens, **kw)
@@ -94,18 +108,18 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
 
 
 def paged_decode_attention(q, k_new, v_new, k_pool, v_pool, block_tables,
-                           pos, spec: AttentionSpec = None, *,
+                           pos, spec: AttentionSpec = None, *, kv_quant=None,
                            plain: bool = False):
     """Decode attention over the pool's first ``pos[b]`` tokens plus the
     current token (k_new, v_new) (B, KVH, Dh) at position ``pos[b]``, which
     is cast to the pool dtype and never read back from the pool (the
     caller's scatter of it into the pool is independent of this read)."""
     spec = spec or AttentionSpec()
-    spec.validate(q, k_pool)
+    spec.validate(q, k_pool, kv_quant)
     kn = k_new.to(k_pool.dtype).contiguous()
     vn = v_new.to(v_pool.dtype).contiguous()
     kw = dict(scale=spec.resolved_scale(q.shape[-1]), window=spec.window,
-              softcap=spec.softcap, fused_new=True)
+              softcap=spec.softcap, fused_new=True, kv_quant=kv_quant)
     if not _on_card(q, plain):
         return ref.paged_decode_ref(q, kn, vn, k_pool, v_pool, block_tables,
                                     pos, **kw)
@@ -116,20 +130,20 @@ def paged_decode_attention(q, k_new, v_new, k_pool, v_pool, block_tables,
 
 def paged_prefill_attention(q, k_pool, v_pool, block_tables, pos0: int,
                             spec: AttentionSpec = None, *, k_new=None,
-                            v_new=None, plain: bool = False):
+                            v_new=None, kv_quant=None, plain: bool = False):
     """Chunk attention: C queries (B, C, H, Dh) at positions ``pos0 + i``.
     With the chunk's (k_new, v_new) (B, C, KVH, Dh) they enter as operands
     and the pool is read only below ``pos0``; without them the chunk's KV is
     read back from the pool, where the caller has scattered it."""
     spec = spec or AttentionSpec()
-    spec.validate(q, k_pool)
+    spec.validate(q, k_pool, kv_quant)
     fused = k_new is not None
     kn = vn = None
     if fused:
         kn = k_new.to(k_pool.dtype).contiguous()
         vn = v_new.to(v_pool.dtype).contiguous()
     kw = dict(scale=spec.resolved_scale(q.shape[-1]), window=spec.window,
-              softcap=spec.softcap, fused_new=fused)
+              softcap=spec.softcap, fused_new=fused, kv_quant=kv_quant)
     if not _on_card(q, plain):
         return ref.paged_chunk_ref(q, kn, vn, k_pool, v_pool, block_tables,
                                    pos0, **kw)

@@ -6,8 +6,14 @@ the new token(s) as operands and reads only pool positions before them;
 ``fused_new=False`` reads everything from the pool. Both take only CUDA
 tensors; their plain torch versions are ``paged_decode_ref`` and
 ``paged_chunk_ref`` in :mod:`repro_torch.kernels.ref`, and
-:mod:`repro_torch.kernels.ops` picks by the tensor's device. Each wrapper's
-``launches`` attribute counts the calls that launched its kernel.
+:mod:`repro_torch.kernels.ops` picks by the tensor's device.
+
+Both take the optional quantized-KV bundle ``kv_quant=(qk, qv, k_scale,
+v_scale, k_zero, v_zero)`` of one layer (int8 mirrors shaped like the pools,
+float32 ``(cap,)`` scale/zero rows); with it the kernel's KVQ lane
+dequantizes every visited pool block (K2-q, K3-q). Each wrapper counts the
+calls that launched its kernel: ``launches`` those without a bundle,
+``quant_launches`` those with one.
 """
 from __future__ import annotations
 
@@ -28,10 +34,12 @@ def _lib():
     if not lib.morph_paged_decode.argtypes:   # else pointers pass as int32
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.morph_paged_decode.argtypes = [p, i, p, p, i, p, p, p, p, p, i, i,
-                                           i, i, i, i, f, i, f, i, p]
+                                           i, i, i, i, f, i, f, i,
+                                           p, p, p, p, p, p, p]
         lib.morph_paged_decode.restype = ctypes.c_int
         lib.morph_paged_chunk.argtypes = [p, i, p, p, i, p, p, p, i, p, i, i,
-                                          i, i, i, i, i, f, i, f, i, p]
+                                          i, i, i, i, i, f, i, f, i,
+                                          p, p, p, p, p, p, p]
         lib.morph_paged_chunk.restype = ctypes.c_int
     return lib
 
@@ -70,6 +78,28 @@ def _check_common(what, q, k_pool, v_pool, tables, k_new, v_new, new_shape):
     return bs, KVH, Dh, H
 
 
+def _check_kv_quant(what, kv_quant, k_pool):
+    """The six sidecar operands of one layer as data pointers (six Nones
+    without a bundle), after checking them against the pool."""
+    if kv_quant is None:
+        return (None,) * 6
+    _check(len(kv_quant) == 6, what,
+           "kv_quant is (qk, qv, k_scale, v_scale, k_zero, v_zero)")
+    cap = k_pool.shape[0]
+    for name, t in zip(("qk", "qv", "k_scale", "v_scale", "k_zero", "v_zero"),
+                       kv_quant):
+        mirror = name in ("qk", "qv")
+        want = ((torch.int8, tuple(k_pool.shape)) if mirror
+                else (torch.float32, (cap,)))
+        _check((t.dtype, tuple(t.shape)) == want, what,
+               f"{name} must be {want[0]} {want[1]}, not {t.dtype} "
+               f"{tuple(t.shape)}")
+        _check(t.device == k_pool.device, what,
+               f"{name} is on {t.device}, the pool on {k_pool.device}")
+        _check(t.is_contiguous(), what, f"{name} must be contiguous")
+    return tuple(t.data_ptr() for t in kv_quant)
+
+
 def _check_device(what, q):
     _check(q.is_cuda, what, "q must be a CUDA tensor (the plain version in "
            "kernels/ref.py serves CPU tensors)")
@@ -77,12 +107,13 @@ def _check_device(what, q):
 
 def paged_decode(q, k_new, v_new, k_pool, v_pool, tables, lens, *,
                  scale: float, window: int = 0, softcap: float = 0.0,
-                 fused_new: bool = True) -> torch.Tensor:
+                 fused_new: bool = True, kv_quant=None) -> torch.Tensor:
     """q (B, H, Dh); pools (cap, bs, KVH, Dh); tables (B, nb) int32; lens
     (B,) int32 pool tokens per sequence. With ``fused_new`` the token
     (k_new, v_new), each (B, KVH, Dh) in the pool dtype, sits at position
     ``lens[b]`` and is the query; otherwise the query is the pool token at
-    ``lens[b] - 1``. Returns (B, H, Dh) in q's dtype."""
+    ``lens[b] - 1``. ``kv_quant``: the layer's sidecar bundle (module
+    docstring). Returns (B, H, Dh) in q's dtype."""
     what = "paged_decode"
     _check(q.ndim == 3, what, "q must be (B, H, Dh)")
     B = q.shape[0]
@@ -97,6 +128,7 @@ def paged_decode(q, k_new, v_new, k_pool, v_pool, tables, lens, *,
     _check(lens.dtype == torch.int32 and tuple(lens.shape) == (B,)
            and lens.device == q.device and lens.is_contiguous(), what,
            "lens must be int32 (B,) on q's device")
+    quant = _check_kv_quant(what, kv_quant, k_pool)
     _check_device(what, q)
     out = torch.empty_like(q)
     if B == 0:
@@ -109,22 +141,27 @@ def paged_decode(q, k_new, v_new, k_pool, v_pool, tables, lens, *,
             v_pool.data_ptr(), build.dtype_code(k_pool.dtype), ptr(k_new),
             ptr(v_new), tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
             B, H, KVH, Dh, bs, tables.shape[1], float(scale), int(window),
-            float(softcap), int(fused_new),
+            float(softcap), int(fused_new), *quant,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check_rc(lib, rc, what)
-    paged_decode.launches += 1
+    if kv_quant is None:
+        paged_decode.launches += 1
+    else:
+        paged_decode.quant_launches += 1
     return out
 
 
 def paged_chunk(q, k_new, v_new, k_pool, v_pool, tables, pos0: int, *,
                 scale: float, window: int = 0, softcap: float = 0.0,
-                fused_new: bool = True) -> torch.Tensor:
+                fused_new: bool = True, kv_quant=None) -> torch.Tensor:
     """q (B, C, H, Dh): C queries at positions ``pos0 + i``; pools
     (cap, bs, KVH, Dh); tables (B, nb) int32 covering the positions read.
     With ``fused_new`` the chunk's (k_new, v_new), each (B, C, KVH, Dh) in
     the pool dtype, enter under the intra-chunk causal mask and the pool is
     read only below ``pos0``; otherwise the chunk's KV is read back from the
-    pool. Returns (B, C, H, Dh) in q's dtype."""
+    pool. ``kv_quant``: the layer's sidecar bundle (module docstring); the
+    chunk's own (k_new, v_new) are always fp. Returns (B, C, H, Dh) in q's
+    dtype."""
     what = "paged_chunk"
     _check(q.ndim == 4, what, "q must be (B, C, H, Dh)")
     B, C = q.shape[:2]
@@ -142,6 +179,7 @@ def paged_chunk(q, k_new, v_new, k_pool, v_pool, tables, pos0: int, *,
     _check(pos0 >= 0, what, "pos0 must be >= 0")
     _check(pos0 + (0 if fused_new else C) <= tables.shape[1] * bs, what,
            "tables do not cover the positions read")
+    quant = _check_kv_quant(what, kv_quant, k_pool)
     _check_device(what, q)
     out = torch.empty_like(q)
     if B == 0 or C == 0:
@@ -154,12 +192,15 @@ def paged_chunk(q, k_new, v_new, k_pool, v_pool, tables, pos0: int, *,
             v_pool.data_ptr(), build.dtype_code(k_pool.dtype), ptr(k_new),
             ptr(v_new), tables.data_ptr(), pos0, out.data_ptr(), B, C, H, KVH,
             Dh, bs, tables.shape[1], float(scale), int(window),
-            float(softcap), int(fused_new),
+            float(softcap), int(fused_new), *quant,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check_rc(lib, rc, what)
-    paged_chunk.launches += 1
+    if kv_quant is None:
+        paged_chunk.launches += 1
+    else:
+        paged_chunk.quant_launches += 1
     return out
 
 
-paged_decode.launches = 0
-paged_chunk.launches = 0
+paged_decode.launches = paged_decode.quant_launches = 0
+paged_chunk.launches = paged_chunk.quant_launches = 0

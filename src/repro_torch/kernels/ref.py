@@ -1,6 +1,13 @@
 """Plain torch versions of the three kernels: the same functions, written
 as gathers, dense masked softmax and ``torch.matmul`` in float32.
 
+The two attention versions take the optional quantized-KV bundle
+``kv_quant=(qk, qv, k_scale, v_scale, k_zero, v_zero)`` of one layer: int8
+mirrors of the pools and one float32 (scale, zero) per pool block. Every
+gathered block is dequantized with the kernels' branch-free FMA
+``fp_slot + q * scale + zero`` (the JAX package's ``_dequant_pools``),
+exact for fp blocks, whose scale and zero are 0.
+
 They are what a kernel route runs on a CPU tensor, what the CPU tests hold
 against the JAX package, and what ``chip_smoke.py`` holds each CUDA kernel
 against on the card.
@@ -36,9 +43,31 @@ def _gather(pool, tables):
     return g.reshape(B, nb * bs, *g.shape[3:])
 
 
+def _gather_kv(k_pool, v_pool, tables, kv_quant):
+    """Gathered (B, nb * bs, KVH, Dh) keys and values; with a bundle, in
+    float32 and dequantized block by block."""
+    k, v = _gather(k_pool, tables), _gather(v_pool, tables)
+    if kv_quant is None:
+        return k, v
+    qk, qv, ks, vs, kz, vz = kv_quant
+    t = tables.long()
+
+    def fma(fp, qpool, s, z):
+        bs = qpool.shape[1]
+
+        def per_token(a):        # (cap,) block rows → (B, nb * bs, 1, 1)
+            return a[t].to(torch.float32).repeat_interleave(bs, dim=1)[
+                :, :, None, None]
+        return (fp.to(torch.float32)
+                + _gather(qpool, tables).to(torch.float32) * per_token(s)
+                + per_token(z))
+
+    return fma(k, qk, ks, kz), fma(v, qv, vs, vz)
+
+
 def paged_decode_ref(q, k_new, v_new, k_pool, v_pool, tables, lens, *,
                      scale=None, window: int = 0, softcap: float = 0.0,
-                     fused_new: bool = True) -> torch.Tensor:
+                     fused_new: bool = True, kv_quant=None) -> torch.Tensor:
     """Gather + dense masked softmax; the function of ``paged_decode``.
 
     ``lens[b]`` tokens live in the pool. With ``fused_new`` the token
@@ -49,8 +78,7 @@ def paged_decode_ref(q, k_new, v_new, k_pool, v_pool, tables, lens, *,
     B, H, Dh = q.shape
     KVH = k_pool.shape[2]
     G = H // KVH
-    k = _gather(k_pool, tables)
-    v = _gather(v_pool, tables)
+    k, v = _gather_kv(k_pool, v_pool, tables, kv_quant)
     T = k.shape[1]
     lens = lens.to(torch.int64)
     kpos = torch.arange(T, device=q.device).expand(B, T)
@@ -78,18 +106,18 @@ def paged_decode_ref(q, k_new, v_new, k_pool, v_pool, tables, lens, *,
 
 def paged_chunk_ref(q, k_new, v_new, k_pool, v_pool, tables, pos0: int, *,
                     scale=None, window: int = 0, softcap: float = 0.0,
-                    fused_new: bool = True) -> torch.Tensor:
+                    fused_new: bool = True, kv_quant=None) -> torch.Tensor:
     """Gather + ``naive_attention``; the function of ``paged_chunk``.
 
     q (B, C, H, Dh) at positions ``pos0 + i``. Without ``fused_new`` the
     pool already holds the chunk's KV and query i sees every pool position
     ``<= pos0 + i`` (the JAX package's ``paged_chunk_gather_attention``).
     With ``fused_new`` the pool is read only below ``pos0`` and the chunk's
-    (k_new, v_new) (B, C, KVH, Dh) take positions ``pos0 ..``."""
+    (k_new, v_new) (B, C, KVH, Dh) take positions ``pos0 ..``; they are
+    always fp, a bundle dequantizes only the pool's blocks."""
     from repro_torch.models.layers import naive_attention
     pos0 = int(pos0)
-    gk = _gather(k_pool, tables)
-    gv = _gather(v_pool, tables)
+    gk, gv = _gather_kv(k_pool, v_pool, tables, kv_quant)
     if fused_new:
         gk = torch.cat([gk[:, :pos0], k_new.to(gk.dtype)], dim=1)
         gv = torch.cat([gv[:, :pos0], v_new.to(gv.dtype)], dim=1)

@@ -13,7 +13,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import jcfg, llama_params, tcfg
+from torch_parity import (MIN_GAP, ORDER, jcfg, llama_params, record_gaps,
+                          serving, tcfg)
 
 from repro.configs import ServingConfig
 from repro.core import profile_swap_sequence as j_profile
@@ -22,30 +23,18 @@ from repro.engine import EngineConfig as JEC
 from repro.engine import MorphServeEngine as JEngine
 from repro.engine import azure_like as j_azure
 from repro.engine.cost_model import HardwareProfile as JHW
-from repro.engine.kv_cache import kv_block_bytes
 from repro.engine.traces import TraceRequest as JTR
 from repro_torch.configs import ServingConfig as TServingConfig
+from repro_torch.configs import reduced as t_reduced
+from repro_torch.configs.archs import DEEPSEEK_V3_671B
 from repro_torch.core import profile_swap_sequence as t_profile
 from repro_torch.core import tree_bytes as t_tree_bytes
 from repro_torch.engine import EngineConfig as TEC
-from repro_torch.engine import KVQuantConfig
 from repro_torch.engine import MorphServeEngine as TEngine
+from repro_torch.engine import PagedKVPool
 from repro_torch.engine import azure_like as t_azure
 from repro_torch.engine.cost_model import HardwareProfile as THW
 from repro_torch.engine.traces import TraceRequest as TTR
-
-MIN_GAP = 1e-3
-ORDER = [2, 0, 3, 1]
-
-
-def _serving(params, cls):
-    """quickstart's deliberately tight budget: weights + 8 fp32 blocks."""
-    wb = j_tree_bytes(params)
-    bb = kv_block_bytes(jcfg(), 16, 4)
-    return cls(hbm_budget_bytes=int((wb + 8 * bb) / 0.95) + 2 * bb,
-               kv_block_size=16, max_batch_slots=4, max_seq_len=256,
-               swap_levels=(0, 1, 2, 4), mode="performance",
-               kv_resize_step_frac=0.25)
 
 
 def test_lis_order_matches_jax():
@@ -69,9 +58,9 @@ def test_sim_report_matches_jax():
               gen_mean=16, prompt_max=200, gen_max=32)
     ecfg = dict(policy="morph", compute="sim", max_tokens_per_step=64,
                 prefix_caching=True)
-    je = JEngine(jcfg(), params, _serving(params, ServingConfig),
+    je = JEngine(jcfg(), params, serving(params, ServingConfig),
                  JEC(**ecfg), swap_order=ORDER)
-    te = TEngine(tcfg(), tparams, _serving(params, TServingConfig),
+    te = TEngine(tcfg(), tparams, serving(params, TServingConfig),
                  TEC(**ecfg), swap_order=ORDER, device="cpu")
     rj = je.run_trace(j_azure(**kw))
     rt = te.run_trace(t_azure(**kw))
@@ -81,49 +70,6 @@ def test_sim_report_matches_jax():
     assert je.actuator.swap_log == te.actuator.swap_log
     assert je.resize_log == te.resize_log
     assert je.chunk_log == te.chunk_log
-
-
-def _top2_gap(row):
-    top = torch.topk(row.float(), 2).values
-    return float(top[0] - top[1])
-
-
-def _record_gaps(eng):
-    """Wrap the engine's real-compute calls to collect the top-2 logit gap
-    of every argmax it takes."""
-    gaps, last = [], {}
-    for name in ("decode", "prefill", "prefill_batch", "prefill_chunk"):
-        fn = getattr(eng.exec, name)
-
-        def run(*a, _fn=fn, _name=name, **k):
-            last[_name] = _fn(*a, **k)
-            return last[_name]
-        setattr(eng.exec, name, run)
-
-    dec, many, chunk = (eng._decode_real, eng._prefill_real_many,
-                        eng._prefill_chunk_real)
-
-    def decode_real(run):
-        dec(run)
-        gaps.extend(_top2_gap(last["decode"][r.slot]) for r in run)
-
-    def prefill_many(admitted):
-        out = many(admitted)
-        if "prefill_batch" in last and len(admitted) > 1:
-            gaps.extend(_top2_gap(last["prefill_batch"][i])
-                        for i in range(len(admitted)))
-        return out
-
-    def prefill_chunk(r, clen):
-        first = chunk(r, clen)
-        if first is not None:
-            gaps.append(_top2_gap(last["prefill_chunk"][clen - 1]))
-        return first
-
-    eng._decode_real = decode_real
-    eng._prefill_real_many = prefill_many
-    eng._prefill_chunk_real = prefill_chunk
-    return gaps
 
 
 def test_real_engine_matches_jax():
@@ -139,13 +85,13 @@ def test_real_engine_matches_jax():
     # near-tie check below holds the setup to that)
     ecfg = dict(policy="morph", compute="real", use_quant_kernel=True,
                 max_tokens_per_step=32, seed=10)
-    je = JEngine(jcfg(), params, _serving(params, ServingConfig),
+    je = JEngine(jcfg(), params, serving(params, ServingConfig),
                  JEC(hw=JHW("slow", 1e9, 1e7, 2**30), **ecfg),
                  swap_order=ORDER)
-    te = TEngine(tcfg(), tparams, _serving(params, TServingConfig),
+    te = TEngine(tcfg(), tparams, serving(params, TServingConfig),
                  TEC(hw=THW("slow", 1e9, 1e7, 2**30), **ecfg),
                  swap_order=ORDER, device="cpu")
-    gaps = _record_gaps(te)
+    gaps = record_gaps(te)
     rj = je.run_trace([JTR(*s) for s in spec])
     rt = te.run_trace([TTR(*s) for s in spec])
     assert min(gaps) > MIN_GAP, f"near-tie in the trace: {min(gaps)}"
@@ -160,12 +106,15 @@ def test_real_engine_matches_jax():
 
 
 def test_engine_refuses_what_is_not_ported():
-    """The quantized-KV tier raises (its kernel lane is not ported), and
-    params on another device than the engine's raise instead of moving."""
+    """An MLA model (its latent pool and K3's latent mode are not ported)
+    raises at the engine and at the pool, and params on another device than
+    the engine's raise instead of moving."""
     params, _, tparams = llama_params()
-    sc = _serving(params, TServingConfig)
+    sc = serving(params, TServingConfig)
+    mla = t_reduced(DEEPSEEK_V3_671B)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(tcfg(), tparams, sc,
-                TEC(kv_quant=KVQuantConfig(enabled=True)), device="cpu")
+        TEngine(mla, None, sc, TEC(compute="sim"), device="cpu")
+    with pytest.raises(NotImplementedError, match="MLA latent pools"):
+        PagedKVPool(mla, 8, 16, device="cpu")
     with pytest.raises(ValueError, match="params live on"):
         TEngine(tcfg(), tparams, sc, TEC(), device="meta")
