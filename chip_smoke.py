@@ -11,10 +11,11 @@ raises on failure:
 
 1. device: the card's name and power limit, torch/CUDA versions, and the
    kernels' build time;
-2. kernels: every hand-written kernel (wNa16 GEMM, paged decode, chunk
-   prefill, and the decode and chunk walks' quantized-KV lane over pools
-   quantized by ``PagedKVPool.quantize_blocks``, int8 and int4) against
-   its plain torch version at the main path's shapes, with the largest
+2. kernels: every hand-written kernel (wNa16 GEMM at both models' matmul
+   shapes, paged decode, chunk prefill, and the decode and chunk walks'
+   quantized-KV lane over pools quantized by
+   ``PagedKVPool.quantize_blocks``, int8 and int4) against its plain
+   torch version at the main path's shapes, with the largest
    error against a stated tolerance and CUDA-event medians of the kernel,
    the plain version and one library call; a zeroed quantized-KV sidecar
    must give the no-quant kernel's output exactly;
@@ -30,7 +31,16 @@ raises on failure:
    on the served report;
 5. step parity: one decode step and one chunk step of that model through
    the kernels against the same steps with the plain versions, then the
-   same two steps with about half of the live blocks quantized (int8).
+   same two steps with about half of the live blocks quantized (int8);
+6. MLA engine: DeepSeek-V3's three dense MLA layers at full width
+   (``DEEPSEEK_V3_671B.replace(n_layers=3)``: d 7168, 128 heads, q_lora
+   1536, kv_lora 512, rope 64, d_ff 18432, vocab 129280), bf16 weights
+   from a seeded generator, served through the same path and trace over
+   the float32 latent pool; chunks go through K3-mla (the chunk walk's
+   latent mode, also in phase 2, where a latent width the kernel is not
+   built for must raise on a CUDA tensor);
+7. MLA step parity: a decode step and a chunk step of that model at its
+   deepest swap level, kernels against plain versions.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It exits non-zero, with no ``ok`` line, when there is no CUDA device, when
@@ -39,6 +49,7 @@ it does not sit in a checkout of the repository, or when any phase fails.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import statistics
 import subprocess
@@ -66,6 +77,9 @@ TOL = {"bfloat16": (1e-2, 1e-3), "float16": (2e-3, 1e-4),
 LOGIT_TOL = 5e-2          # relative to max|plain logits|
 
 REPS = 15
+# the MLA engine phase's budget: the weights plus this many float32 latent
+# blocks (3 layers x 16 x 576 x 4 B = 110.6 KB each)
+MLA_KV_BLOCKS = 8
 SLEEP_CYCLES = 2_000_000      # ~1 ms at the H100's clock: covers the enqueue
 
 
@@ -124,14 +138,30 @@ def check_close(name, got, want):
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+# the (K, N) of every matmul of a swapped layer, each with the weight
+# widths and the M the main path gives it (decode 1 / 8 slots, chunks and
+# batched prefills up to 256 rows) and the M at which it is timed.
+# Llama-2-7B: wq/wk/wv/wo, MLP up/gate, down; int4 and int8.
+# DeepSeek-V3's dense MLA layers (the swap plan's int4): w_dq, w_uq, w_dkv
+# (its last 64 columns are the rope key), w_ukv (whole-prompt prefill's
+# latent expansion), wo, MLP up/gate, down.
+WNA16_CASES = ([(K, N, (4, 8), (1, 8, 256)) for K, N in
+                ((4096, 4096), (4096, 11008), (11008, 4096))]
+               + [(K, N, (4,), (8,)) for K, N in
+                  ((7168, 1536), (1536, 24576), (7168, 576), (512, 32768),
+                   (16384, 7168), (7168, 18432), (18432, 7168))])
+
+
 def wna16_cases(torch, timer, results):
+    """K1 against its plain version, elementwise, at M 1 / 8 / 256 for
+    every (K, N) of ``WNA16_CASES``; timed at that case's timed M."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.wna16_gemm import wna16_gemm
     from repro_torch.quant import quantize_tensor
     gen = torch.Generator(device="cuda").manual_seed(11)
-    for (K, N) in ((4096, 4096), (4096, 11008), (11008, 4096)):
+    for K, N, widths, timed in WNA16_CASES:
         w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
-        for bits in (4, 8):
+        for bits in widths:
             qt = quantize_tensor(w.to(torch.bfloat16), bits=bits, group=128)
             wd = qt.dequantize(torch.bfloat16)
             for M in (1, 8, 256):
@@ -144,6 +174,11 @@ def wna16_cases(torch, timer, results):
                 torch.cuda.synchronize()
                 name = f"wna16 M={M} K={K} N={N} int{bits}"
                 err = check_close(name, got, want)
+                row = dict(kernel="wna16_gemm", case=name, err=err)
+                results.append(row)
+                if M not in timed:
+                    log(f"  {name}: err {err:.2e}")
+                    continue
                 t_k = timer.ms(lambda: wna16_gemm(*args, **kw))
                 t_p = timer.ms(lambda: ref.wna16_ref(*args, **kw))
                 t_l = timer.ms(lambda: torch.matmul(x, wd))
@@ -153,12 +188,12 @@ def wna16_cases(torch, timer, results):
                 bound = max(nbytes / HBM_BYTES_S, flops / BF16_FLOP_S) * 1e3
                 by = "bytes" if nbytes / HBM_BYTES_S >= flops / BF16_FLOP_S \
                     else "operations"
-                results.append(dict(kernel="wna16_gemm", case=name, err=err,
-                                    ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                    bound_ms=bound, bound_by=by))
+                row.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                           bound_ms=bound, bound_by=by)
                 log(f"  {name}: err {err:.2e} kernel {t_k:.4f} ms plain "
                     f"{t_p:.4f} ms matmul(bf16 W) {t_l:.4f} ms bound "
                     f"{bound:.4f} ms ({by})")
+        del w, qt, wd
 
 
 def _pool_case(torch, gen, B, lens, KVH, Dh, bs, extra_blocks=0):
@@ -424,17 +459,110 @@ def chunk_cases(torch, timer, results, cases=CHUNK_CASES, bits=None):
             + ("" if noop is None else f"; no-op bundle diff {noop}"))
 
 
+MLA_CHUNK_CASES = ([(Cp, pos0, fused, "float32") for Cp in (16, 256)
+                    for pos0 in (0, 200) for fused in (True, False)]
+                   + [(64, 100, fused, "bfloat16") for fused in (True, False)])
+
+
+def mla_chunk_cases(torch, timer, results):
+    """K3-mla at DeepSeek-V3's shapes: 128 query heads over one latent
+    pool of width 576 (values: its first 512 lanes), float32 q, bs 16,
+    scale 192 ** -0.5, ragged tables; the float32 pool the engine phases
+    allocate, and the bf16 pool of ``EngineConfig(dtype="bfloat16")``.
+    Both sides read the same pool values and accumulate in float32, so
+    either pool is held to the float32 output's tolerance. Then a latent
+    width the kernel is not built for must raise on a CUDA tensor, at the
+    wrapper and through the latent route, without launching."""
+    from repro_torch.kernels import AttentionSpec, ops, ref
+    from repro_torch.kernels.paged_attention import paged_chunk_mla
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    bs, H, W, dv, scale = 16, 128, 576, 512, 192 ** -0.5
+    F = torch.nn.functional
+    for Cp, pos0, fused, pdt in MLA_CHUNK_CASES:
+        pool, _, tables = _pool_case(torch, gen, 1, [pos0 + Cp], 1, W, bs,
+                                     extra_blocks=1)
+        pool = pool.to(getattr(torch, pdt))
+        q = torch.randn((1, Cp, H, W), generator=gen, device="cuda")
+        new = torch.randn((1, Cp, 1, W), generator=gen,
+                          device="cuda").to(pool.dtype)
+        if not fused:      # the pool-read mode reads the chunk's own rows
+            pos = pos0 + torch.arange(Cp, device="cuda")
+            pool[tables[0].long()[pos // bs], pos % bs] = new[0]
+        kw = dict(scale=scale, fused_new=fused)
+        ln = new if fused else None
+        want = ref.paged_chunk_ref(q, ln, ln, pool, pool, tables, pos0,
+                                   dv=dv, **kw)
+        got = paged_chunk_mla(q, ln, pool, tables, pos0, dv=dv, **kw)
+        torch.cuda.synchronize()
+        name = f"mla chunk Cp={Cp} pos0={pos0} H={H} W={W} dv={dv} " \
+            f"fused={fused}" + ("" if pdt == "float32" else f" pool={pdt}")
+        err = check_close(name, got, want)
+        t_k = timer.ms(lambda: paged_chunk_mla(q, ln, pool, tables, pos0,
+                                               dv=dv, **kw))
+        t_p = timer.ms(lambda: ref.paged_chunk_ref(q, ln, ln, pool, pool,
+                                                   tables, pos0, dv=dv, **kw))
+        # each input once: q, the visible context rows (plus the chunk's
+        # own, from the pool or as operands), the table; the output once
+        t_vis = sum(pos0 + i + 1 for i in range(Cp))
+        nbytes = (q.numel() * 4 + (pos0 + Cp) * W * pool.element_size()
+                  + tables.numel() * 4 + Cp * H * dv * 4)
+        flops = 2 * H * t_vis * (W + dv)
+        bound = max(nbytes / HBM_BYTES_S, flops / F32_FLOP_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_S >= flops / F32_FLOP_S \
+            else "operations"
+        # library: SDPA over the pre-gathered latent, keys expanded over
+        # the heads, values = keys[..., :dv]
+        T = pos0 + Cp
+        lat = pool.clone()
+        if fused:
+            pos = pos0 + torch.arange(Cp, device="cuda")
+            lat[tables[0].long()[pos // bs], pos % bs] = new[0]
+        lat = lat[tables[0].long()].reshape(-1, W)[:T].float()
+        k = lat[None, None].expand(1, H, T, W).contiguous()
+        v = k[..., :dv].contiguous()
+        qh = q.permute(0, 2, 1, 3).contiguous()
+        mask = (torch.arange(T, device="cuda")[None, :]
+                <= pos0 + torch.arange(Cp, device="cuda")[:, None])
+        t_l = timer.ms(lambda: F.scaled_dot_product_attention(
+            qh, k, v, attn_mask=mask[None, None], scale=scale))
+        del k, v, qh
+        results.append(dict(kernel="paged_chunk_mla", case=name, err=err,
+                            ms=t_k, plain_ms=t_p, library_ms=t_l,
+                            bound_ms=bound, bound_by=by))
+        log(f"  {name}: err {err:.2e} kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+            f"sdpa {t_l:.4f} ms bound {bound:.4f} ms ({by})")
+
+    # a latent width the kernel lacks: CUDA tensors raise, never go plain
+    n0 = paged_chunk_mla.launches
+    q = torch.randn((1, 8, 4, 48), device="cuda")
+    pool = torch.randn((4, 8, 1, 48), device="cuda")
+    tables = torch.tensor([[1, 2, 0, 0]], dtype=torch.int32, device="cuda")
+    spec = AttentionSpec(scale=0.2, kv_heads=1, latent_dv=32)
+    for what, call in (
+            ("wrapper", lambda: paged_chunk_mla(q, None, pool, tables, 5,
+                                                dv=32, scale=0.2,
+                                                fused_new=False)),
+            ("route", lambda: ops.paged_latent_chunk_attention(
+                q, pool, tables, 5, spec))):
+        try:
+            call()
+        except ValueError as e:
+            log(f"  latent width 48 / 32 on the card ({what}) raises: {e}")
+        else:
+            raise AssertionError(f"latent width 48 ran on the card ({what})")
+    if paged_chunk_mla.launches != n0:
+        raise AssertionError("a refused latent width launched the kernel")
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the quickstart path at full width, with the tier off / on
 # ---------------------------------------------------------------------------
-def build_model(torch):
-    """Llama-2-7B at full width cut to 8 layers, bf16 weights from a seeded
-    generator, and its LIS swap order."""
-    from repro_torch.configs import MORPH_LLAMA2_7B
+def build_model(torch, cfg):
+    """``cfg`` (a full-width config cut in depth) with bf16 weights from a
+    seeded generator, and its LIS swap order."""
     from repro_torch.core import profile_swap_sequence
     from repro_torch.models import lm
 
-    cfg = MORPH_LLAMA2_7B.replace(n_layers=8)        # depth cut, full width
     t0 = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     calib = torch.randint(0, cfg.vocab, (2, 32), device="cuda",
@@ -442,19 +570,25 @@ def build_model(torch):
                           .manual_seed(1))
     prof = profile_swap_sequence(cfg, params, calib, bits=4)
     torch.cuda.synchronize()
-    log(f"model: {cfg.name} x{cfg.n_layers} layers d={cfg.d_model} "
-        f"H={cfg.n_heads} KVH={cfg.n_kv_heads} d_ff={cfg.d_ff} "
+    heads = (f"KVH={cfg.n_kv_heads}" if cfg.mla is None else
+             f"MLA q_lora={cfg.mla.q_lora_rank} kv_lora="
+             f"{cfg.mla.kv_lora_rank} rope={cfg.mla.qk_rope_head_dim}")
+    log(f"model: {cfg.name} x{cfg.n_layers} layers {lm.layer_kinds(cfg)} "
+        f"d={cfg.d_model} H={cfg.n_heads} {heads} d_ff={cfg.d_ff} "
         f"vocab={cfg.vocab} {cfg.dtype}; LIS swap order {prof.order} "
         f"({time.perf_counter() - t0:.1f} s incl. init)")
     return cfg, params, prof.order
 
 
-def engine_phase(torch, model, counters, *, kv_blocks, kv_quant):
+def engine_phase(torch, model, counters, *, kv_blocks, kv_quant,
+                 need=("wna16_gemm", "paged_decode", "paged_chunk")):
     """Serve the quickstart trace through ``MorphServeEngine`` with real
     compute under a budget of the weights plus ``kv_blocks`` float32 KV
     blocks, with the quantize-cold tier off or on. ``counters`` maps each
     kernel's name to its (wrapper, counter attribute); the counts are set
-    to 0 just before the run and read just after."""
+    to 0 just before the run and read just after. With the tier off, the
+    kernels in ``need`` must have launched, a layer must have swapped and a
+    prompt must have been chunked."""
     from repro_torch.configs import ServingConfig
     from repro_torch.core import tree_bytes
     from repro_torch.engine import (EngineConfig, KVQuantConfig,
@@ -500,6 +634,8 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant):
                        gen_mean=24, prompt_max=512, gen_max=48)
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
+    gc.collect()      # engines of earlier phases no one holds (their wrapped
+    #                   exec methods form reference cycles) leave the peak
     torch.cuda.reset_peak_memory_stats()
     cap0 = eng.pool.capacity
     t0 = time.perf_counter()
@@ -520,7 +656,7 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant):
                    [p._cap_bucket(n + 1) for _, n in eng.resize_log])
     per_block = sum(t.numel() * t.element_size() for t in
                     (p.k, p.v, p.qk, p.qv, p.k_scale, p.v_scale, p.k_zero,
-                     p.v_zero) if t is not None) / p.capacity
+                     p.v_zero) if t is not None and t.ndim > 1) / p.capacity
     chunks = sum(r.prefill_chunks for r in eng.all_requests)
     tokens = sum(len(r.generated) for r in eng.all_requests)
     events = collections.Counter()
@@ -559,7 +695,6 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant):
             fails.append("no swap level > 0 was reached")
         if chunks <= 0:
             fails.append("no chunked prefill happened")
-        need = ("wna16_gemm", "paged_decode", "paged_chunk")
     for name in need:
         if launches[name] <= 0:
             fails.append(f"kernel {name} was not launched on the main path")
@@ -573,14 +708,16 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant):
 # ---------------------------------------------------------------------------
 # phase 5: decode and chunk steps, kernels vs plain
 # ---------------------------------------------------------------------------
-def parity_phase(torch, cfg, eng):
+def parity_phase(torch, cfg, eng, quantized=True):
     """One decode step (8 live sequences of ragged length) and one chunk
     step of the full-width model at the deepest swap level (every layer
     int4, so every matmul of the layers goes through K1), through the
     kernels and through the plain versions, each from the same pool state;
-    then the same two steps with about half of the live blocks quantized
-    (int8), through K2-q and K3-q. ``eng`` is the tier-on engine, whose
-    attention specs take a bundle."""
+    then, with ``quantized``, the same two steps with about half of the
+    live blocks quantized (int8), through K2-q and K3-q (``eng`` is then
+    the tier-on engine, whose attention specs take a bundle). For an MLA
+    model the chunk step goes through K3-mla and the decode step's
+    attention is plain torch on both sides."""
     from repro_torch.engine.kv_cache import PagedKVPool
     level = max(eng.plan.levels)
     layers = eng.plan.layer_list(level)
@@ -628,6 +765,8 @@ def parity_phase(torch, cfg, eng):
                     layers, chunk, pos0, k, v, tables[0], kvq, plain=plain))
 
     steps("")
+    if not quantized:
+        return
     # quantize the first half of each sequence's full blocks (never the
     # tail the decode step appends to, nor the chunk's blocks)
     qids = [int(tables[i, j]) for i in range(slots)
@@ -647,8 +786,11 @@ def main() -> int:
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.archs import DEEPSEEK_V3_671B, MORPH_LLAMA2_7B
     from repro_torch.kernels import build
-    from repro_torch.kernels.paged_attention import paged_chunk, paged_decode
+    from repro_torch.kernels.paged_attention import (paged_chunk,
+                                                     paged_chunk_mla,
+                                                     paged_decode)
     from repro_torch.kernels.wna16_gemm import wna16_gemm
 
     # 1. device + build
@@ -681,6 +823,9 @@ def main() -> int:
     for bits in (8, 4):
         decode_cases(torch, timer, results, DECODE_Q_CASES, bits=bits)
         chunk_cases(torch, timer, results, CHUNK_Q_CASES, bits=bits)
+    log("K3-mla, the chunk walk's latent mode (float32 q and latent pool; "
+        f"tolerance {TOL['float32']})")
+    mla_chunk_cases(torch, timer, results)
     log(f"kernel phase {time.perf_counter() - t0:.1f} s")
 
     # 3-4. the main path with the quantize-cold tier off, then on, then off
@@ -689,13 +834,15 @@ def main() -> int:
                 "paged_decode": (paged_decode, "launches"),
                 "paged_chunk": (paged_chunk, "launches"),
                 "paged_decode_q": (paged_decode, "quant_launches"),
-                "paged_chunk_q": (paged_chunk, "quant_launches")}
+                "paged_chunk_q": (paged_chunk, "quant_launches"),
+                "paged_chunk_mla": (paged_chunk_mla, "launches")}
     t0 = time.perf_counter()
-    model = build_model(torch)
+    # Llama-2-7B at full width, depth cut 32 -> 8
+    model = build_model(torch, MORPH_LLAMA2_7B.replace(n_layers=8))
     log("engine phase, kv-quant tier off (quickstart budget: weights + 8 "
         "KV blocks)")
-    _, launches = engine_phase(torch, model, counters, kv_blocks=8,
-                               kv_quant=False)
+    launches = engine_phase(torch, model, counters, kv_blocks=8,
+                            kv_quant=False)[1]
     log("engine phase, kv-quant tier on (weights + 16 KV blocks: the "
         "budget at which the quickstart trace engages the tier)")
     eng, q_launches = engine_phase(torch, model, counters, kv_blocks=16,
@@ -713,6 +860,25 @@ def main() -> int:
     t0 = time.perf_counter()
     parity_phase(torch, model[0], eng)
     log(f"step parity {time.perf_counter() - t0:.1f} s")
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6-7. DeepSeek-V3's dense MLA layers at full width, depth cut 61 -> 3
+    t0 = time.perf_counter()
+    mla = build_model(torch, DEEPSEEK_V3_671B.replace(n_layers=3))
+    log(f"MLA engine phase (weights + {MLA_KV_BLOCKS} float32 latent "
+        "blocks; chunks through K3-mla)")
+    mla_eng, mla_launches = engine_phase(
+        torch, mla, counters, kv_blocks=MLA_KV_BLOCKS, kv_quant=False,
+        need=("wna16_gemm", "paged_chunk_mla"))
+    launches["paged_chunk_mla"] = mla_launches["paged_chunk_mla"]
+    log(f"MLA engine phase {time.perf_counter() - t0:.1f} s")
+    log(f"MLA step parity (kernels vs plain, tolerance {LOGIT_TOL} x "
+        "max|logit|)")
+    t0 = time.perf_counter()
+    parity_phase(torch, mla[0], mla_eng, quantized=False)
+    log(f"MLA step parity {time.perf_counter() - t0:.1f} s")
 
     # the representative main-path case of each kernel, errors over all cases
     main_case = {"wna16_gemm": "wna16 M=8 K=4096 N=11008 int4",
@@ -723,7 +889,9 @@ def main() -> int:
                  "paged_decode_q": ("decode B=8 ctx=2048 H=32 KVH=32 w=0 "
                                     "cap=0.0 fused=True int8"),
                  "paged_chunk_q": ("chunk Cp=256 pos0=200 H=32 KVH=32 w=0 "
-                                   "cap=0.0 fused=True int8")}
+                                   "cap=0.0 fused=True int8"),
+                 "paged_chunk_mla": ("mla chunk Cp=256 pos0=200 H=128 W=576 "
+                                     "dv=512 fused=True")}
     csrc = "src/repro_torch/kernels/csrc/"
     where = {"wna16_gemm": (csrc + "wna16_gemm.cu",
                             "src/repro/kernels/wna16_gemm.py:81"),
@@ -734,7 +902,9 @@ def main() -> int:
              "paged_decode_q": (csrc + "paged_attention.cu",
                                 "src/repro/kernels/paged_attention.py:78"),
              "paged_chunk_q": (csrc + "paged_attention.cu",
-                               "src/repro/kernels/paged_attention.py:315")}
+                               "src/repro/kernels/paged_attention.py:315"),
+             "paged_chunk_mla": (csrc + "paged_attention_mla.cu",
+                                 "src/repro/kernels/paged_attention.py:320")}
     line = []
     for name, case in main_case.items():
         rows = [r for r in results if r["kernel"] == name]

@@ -75,10 +75,14 @@ def copy_pool_state(src, dst) -> None:
     fp pools ``k``/``v``, the quantized-KV sidecar (int8 mirrors
     ``qk``/``qv``, float32 ``k_scale``/``v_scale``/``k_zero``/``v_zero``
     rows; None while ``src`` has none) and the ``qbits`` host map. The two
-    pools must have the same shape; the allocator is not copied."""
-    if tuple(np.shape(src.k)) != tuple(dst.k.shape):
-        raise ValueError(f"pool shapes differ: {np.shape(src.k)} vs "
-                         f"{tuple(dst.k.shape)}")
+    pools must have the same shape; for an MLA latent pool ``k`` is the
+    latent pool and ``v`` the (1,) placeholder on both sides. The allocator
+    is not copied."""
+    for name in ("k", "v"):
+        a, t = getattr(src, name), getattr(dst, name)
+        if tuple(np.shape(a)) != tuple(t.shape):
+            raise ValueError(f"pool shapes differ ({name}): {np.shape(a)} "
+                             f"vs {tuple(t.shape)}")
     for name in _POOL_STATE:
         a = getattr(src, name)
         t = None if a is None else array_to_torch(a, dst.device)

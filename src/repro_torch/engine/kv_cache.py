@@ -2,6 +2,8 @@
 
 Device layout (the JAX package's):
   k_pool, v_pool: (L, capacity, block_size, KVH, Dh)
+  MLA: k is the latent pool (L, capacity, block_size, 1, r + rope) and v
+  the JAX package's (1,) placeholder, which no step reads or writes.
 
 Block 0 is a reserved scratch block (inactive decode slots write there), so
 allocatable ids are 1..num_blocks-1. The allocator hands out lowest-index
@@ -120,25 +122,34 @@ class PagedKVPool:
     in the int8 mirror. The mirror is allocated at the full pool shape, as
     in the JAX package: the ledger books a quantized block at the reduced
     rate, but the device holds both the fp slot and the mirror.
+
+    **MLA latent pool**: ``k`` holds the latent rows (KVH = 1, Dh = r +
+    rope) and ``v`` is a (1,) placeholder; every block operation moves,
+    exports and imports ``k`` alone (``v`` is None on export). The latent
+    pool keeps fp blocks: its sidecar is never allocated (the engine's
+    quantize tier is off for MLA, as in the JAX engine).
     """
 
     def __init__(self, cfg: ModelConfig, num_blocks: int, block_size: int,
                  dtype=torch.float32, *, bucket_capacity: bool = True,
                  device="cuda"):
-        if cfg.mla is not None:
-            raise NotImplementedError(
-                "MLA latent pools are not ported yet (ROADMAP queue 1)")
         self.cfg = cfg
         self.block_size = block_size
         self.dtype = dtype
         self.device = torch.empty(0, device=device).device
         self.bucket_capacity = bucket_capacity
-        self.kvh, self.dh = cfg.n_kv_heads, cfg.resolved_head_dim
+        self.latent = cfg.mla is not None
+        if self.latent:
+            self.kvh = 1
+            self.dh = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+        else:
+            self.kvh, self.dh = cfg.n_kv_heads, cfg.resolved_head_dim
         self.capacity = self._cap_bucket(num_blocks)
         self.copies = 0
         shape = (cfg.n_layers, self.capacity, block_size, self.kvh, self.dh)
         self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v = torch.zeros((1,) if self.latent else shape, dtype=dtype,
+                             device=self.device)
         self.alloc = BlockAllocator(num_blocks)
         self.qk = self.qv = None
         self.k_scale = self.v_scale = None
@@ -157,6 +168,11 @@ class PagedKVPool:
     @property
     def num_blocks(self) -> int:
         return self.alloc.num_blocks
+
+    @property
+    def _fp_names(self):
+        """The block-indexed fp pools: k alone for a latent pool."""
+        return ("k",) if self.latent else ("k", "v")
 
     def usage(self) -> float:
         cap = self.num_blocks - 1
@@ -185,8 +201,9 @@ class PagedKVPool:
         if new_num_blocks > old:
             new_cap = self._cap_bucket(new_num_blocks)
             if new_cap > self.capacity:
-                self.k = self._pad(self.k, new_cap)
-                self.v = self._pad(self.v, new_cap)
+                for name in self._fp_names:
+                    setattr(self, name, self._pad(getattr(self, name),
+                                                  new_cap))
                 self._resize_sidecar(new_cap)
                 self.capacity = new_cap
                 self.copies += 1
@@ -196,8 +213,9 @@ class PagedKVPool:
             return False
         new_cap = self._cap_bucket(new_num_blocks)
         if new_cap < self.capacity:
-            self.k = self.k[:, :new_cap].contiguous()
-            self.v = self.v[:, :new_cap].contiguous()
+            for name in self._fp_names:
+                setattr(self, name,
+                        getattr(self, name)[:, :new_cap].contiguous())
             self._resize_sidecar(new_cap)
             self.capacity = new_cap
             self.copies += 1
@@ -228,6 +246,9 @@ class PagedKVPool:
     def _ensure_sidecar(self) -> None:
         if self.qk is not None:
             return
+        if self.latent:
+            raise ValueError("the MLA latent pool keeps fp blocks: it has "
+                             "no quantized-KV sidecar")
         self.qk = torch.zeros(self.k.shape, dtype=torch.int8,
                               device=self.device)
         self.qv = torch.zeros_like(self.qk)
@@ -328,7 +349,8 @@ class PagedKVPool:
         as pure fp through the kernels' FMA after realloc. Device contents
         only: the caller keeps the host maps (``qbits`` included)."""
         si, di = self._ids(src), self._ids(dst)
-        names = ("k", "v") + (self._SIDECAR if self.qk is not None else ())
+        names = self._fp_names + (self._SIDECAR if self.qk is not None
+                                  else ())
         for name in names:
             t = getattr(self, name)
             t[:, di] = t[:, si]
@@ -343,20 +365,23 @@ class PagedKVPool:
     # ------------------------------------------------------------------
     def gather_blocks(self, ids: Sequence[int]):
         """Copy the listed blocks to host memory: ``(k, v)`` float32 numpy
-        arrays of shape ``(L, len(ids), block_size, KVH, Dh)``. The contents
-        travel, the ids do not (the importer allocates its own)."""
+        arrays of shape ``(L, len(ids), block_size, KVH, Dh)`` (``v`` is
+        None for a latent pool). The contents travel, the ids do not (the
+        importer allocates its own)."""
         idx = self._ids(ids)
-        k = self.k[:, idx].to(torch.float32).cpu().numpy()
-        v = self.v[:, idx].to(torch.float32).cpu().numpy()
-        return k, v
+
+        def host(t):
+            return t[:, idx].to(torch.float32).cpu().numpy()
+        return host(self.k), None if self.latent else host(self.v)
 
     def scatter_blocks(self, ids: Sequence[int], k, v=None) -> None:
         """Write migrated block contents (numpy or tensors) into
-        freshly-allocated local ids, in place."""
+        freshly-allocated local ids, in place (``v`` is ignored by a latent
+        pool)."""
         idx = self._ids(ids)
         self.k[:, idx] = torch.as_tensor(np.asarray(k)).to(self.device,
                                                            self.dtype)
-        if v is not None:
+        if v is not None and not self.latent:
             self.v[:, idx] = torch.as_tensor(np.asarray(v)).to(self.device,
                                                                self.dtype)
 

@@ -1,4 +1,5 @@
-"""Model execution over the paged KV pool + mixed-precision layers (GQA).
+"""Model execution over the paged KV pool + mixed-precision layers (GQA,
+and DeepSeek's MLA over the latent pool).
 
 This is the worker's data plane. PyTorch runs eagerly, so there is no jit
 cache; what stays from the JAX package is the bucketing that fixes shapes:
@@ -22,10 +23,19 @@ The decode and chunk steps take the pool's quantized-KV bundle ``kvq``
 (L-leading tensors, ``PagedKVPool.kv_quant_bundle``; None while no block is
 quantized) and hand each layer its slice. Whole-prompt prefill takes none:
 it writes only freshly allocated blocks and reads no pool KV.
+
+MLA layers keep one latent row (c_kv, k_rope) per token in ``pool_k``
+(KVH = 1, Dh = r + rope; ``pool_v`` is a placeholder nobody reads). Decode
+and chunk prefill score against the latent pool with the absorbed weights
+(``absorb_mla_decode_weights``, cached per layer list by ModelExec):
+decode in plain torch, as in the JAX package, and chunk prefill through
+the chunk route's latent mode (K3-mla). The JAX package has a second chunk
+numerics, expanding the latent to per-head K/V under its ``xla`` dispatch
+mode; the port always takes the absorbed one.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Any, Dict, List, Tuple
 
 import torch
 
@@ -49,7 +59,15 @@ def build_attention_specs(cfg: ModelConfig, kinds,
     """One :class:`~repro_torch.kernels.ops.AttentionSpec` per layer, built
     once at :class:`ModelExec` construction. ``kv_quant=True`` marks the
     layers' pools as ones that may hold quantized blocks; without it a step
-    given a bundle raises."""
+    given a bundle raises. An MLA layer's spec is the latent mode: one kv
+    head, the qk head dim's scale and ``latent_dv = kv_lora_rank`` (the
+    latent pool keeps fp blocks, so ``kv_quant`` does not apply)."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        spec = ops.AttentionSpec(
+            scale=(m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5,
+            q_heads=cfg.n_heads, kv_heads=1, latent_dv=m.kv_lora_rank)
+        return tuple(spec for _ in kinds)
     return tuple(
         ops.AttentionSpec(window=lm.layer_window(cfg, i),
                           softcap=cfg.logit_softcap,
@@ -101,20 +119,56 @@ def _paged_gqa_decode(p, cfg, x, pool_k, pool_v, li, tables, pos, spec,
                           bias=p.get("bo"), plain=plain)
 
 
+def _paged_mla_decode(p, cfg, x, pool_k, li, tables, pos, plain=False):
+    """MLA decode over the latent pool with absorbed-weight scoring, in
+    plain torch (the JAX package has no kernel here). Expects the absorbed
+    attention params (``wk_abs``/``wv_abs`` in place of ``w_ukv``). Appends
+    each slot's latent row in place, then reads the table's width of
+    latent rows, of which the first ``pos + 1`` are live."""
+    m = cfg.mla
+    slots = x.shape[0]
+    bs = pool_k.shape[2]
+    q_nope, q_rope, c_kv_new, k_rope_new = L._mla_qkv(p, cfg, x,
+                                                      pos[:, None],
+                                                      plain=plain)
+    latent_new = torch.cat([c_kv_new[:, 0], k_rope_new[:, 0, 0]], -1)
+    pos_l = pos.long()
+    blk = tables.long().gather(1, (pos_l // bs)[:, None])[:, 0]
+    pool_k[li, blk, pos_l % bs, 0] = latent_new.to(pool_k.dtype)
+    lat = pool_k[li][tables.long()]           # (slots, nb, bs, 1, r+rope)
+    lat = lat.reshape(slots, -1, lat.shape[-1]).to(torch.float32)
+    c_kv, k_rope = lat[..., :m.kv_lora_rank], lat[..., m.kv_lora_rank:]
+    T = c_kv.shape[1]
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope.to(torch.float32),
+                         p["wk_abs"])
+    s = (torch.einsum("bshr,btr->bhst", q_abs, c_kv)
+         + torch.einsum("bshd,btd->bhst", q_rope.to(torch.float32), k_rope))
+    s = s * ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    live = torch.arange(T, device=x.device)[None, :] < (pos_l + 1)[:, None]
+    s = torch.where(live[:, None, None, :], s, torch.full_like(s, -1e30))
+    ctx = torch.einsum("bhst,btr->bshr", torch.softmax(s, dim=-1), c_kv)
+    out = torch.einsum("bshr,rhd->bshd", ctx, p["wv_abs"]).to(x.dtype)
+    return qlinear.matmul(out.reshape(slots, 1, -1), p["wo"], plain=plain)
+
+
 def paged_decode_step(cfg: ModelConfig, kinds, specs, misc, layer_params,
                       tokens, pos, pool_k, pool_v, tables, kvq=None, *,
                       plain: bool = False):
     """tokens: (slots, 1); pos: (slots,) int32 absolute index of the token
     being decoded (its RoPE position and KV append slot); tables:
     (slots, nb) int32; ``kvq``: the pool's quantized-KV bundle or None.
-    Appends each layer's KV to the pools in place. Returns logits
-    (slots, V)."""
+    Appends each layer's KV to the pools in place. MLA layers take the
+    absorbed params. Returns logits (slots, V)."""
     x = lm.embed_tokens(cfg, misc, tokens)
     for i, p in enumerate(layer_params):
         h = L.apply_norm(cfg.norm, p["ln1"], x)
-        attn_out = _paged_gqa_decode(p["attn"], cfg, h, pool_k, pool_v, i,
-                                     tables, pos, specs[i],
-                                     _layer_kvq(kvq, i), plain)
+        if cfg.mla is not None:
+            attn_out = _paged_mla_decode(p["attn"], cfg, h, pool_k, i,
+                                         tables, pos, plain)
+        else:
+            attn_out = _paged_gqa_decode(p["attn"], cfg, h, pool_k, pool_v,
+                                         i, tables, pos, specs[i],
+                                         _layer_kvq(kvq, i), plain)
         x = _mlp_residual(p, cfg, x, h, attn_out, plain)
     return lm.unembed(cfg, misc, x)[:, 0]
 
@@ -136,12 +190,21 @@ def paged_prefill(cfg: ModelConfig, kinds, misc, layer_params, tokens,
     ids = block_ids.long()
     if nb > 0:
         for i, payload in enumerate(payloads):
-            for pool, t in ((pool_k, payload["k"][0]),
-                            (pool_v, payload["v"][0])):
+            for pool, t in _payload_rows(payload, pool_k, pool_v, 0):
                 if pad > 0:
                     t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
                 pool[i, ids] = t.reshape(nb, bs, *t.shape[1:]).to(pool.dtype)
     return logits[0]
+
+
+def _payload_rows(payload, pool_k, pool_v, row=None):
+    """(pool, rows) pairs of one layer's prefill payload, batch row ``row``
+    (all rows when None), shaped (..., S, KVH, Dh): k and v for GQA; for
+    MLA, the latent rows as the one kv head of ``pool_k``."""
+    sel = (lambda t: t if row is None else t[row])
+    if "latent" in payload:
+        return ((pool_k, sel(payload["latent"]).unsqueeze(-2)),)
+    return ((pool_k, sel(payload["k"])), (pool_v, sel(payload["v"])))
 
 
 def paged_prefill_batch(cfg: ModelConfig, kinds, misc, layer_params, tokens,
@@ -162,7 +225,7 @@ def paged_prefill_batch(cfg: ModelConfig, kinds, misc, layer_params, tokens,
     ids = tables.long()
     if nb > 0:
         for i, payload in enumerate(payloads):
-            for pool, t in ((pool_k, payload["k"]), (pool_v, payload["v"])):
+            for pool, t in _payload_rows(payload, pool_k, pool_v):
                 pool[i, ids] = t.reshape(P, nb, bs, *t.shape[2:]).to(
                     pool.dtype)
     rows = torch.arange(P, device=logits.device)
@@ -198,6 +261,33 @@ def _chunk_gqa_attention(p, cfg, x, positions, pool_k, pool_v, li, tables,
                           plain=plain)
 
 
+def _chunk_mla_attention(p, cfg, x, positions, pool_k, li, tables, blk,
+                         off, pos0, spec, plain=False):
+    """MLA chunk attention over the latent pool, absorbed (batch 1).
+
+    The chunk's latent rows are scattered into layer ``li`` of the pool in
+    place; the absorbed query (q_nope · W_uk, then q_rope, in float32)
+    attends through the chunk route's latent mode (K3-mla) with the chunk's
+    latent rows as its fused keys and values (the walk reads the pool only
+    below ``pos0``); the (1, Cp, H, r) latent context is expanded through
+    W_uv afterwards. Expects the absorbed attention params."""
+    B, Cp, _ = x.shape
+    q_nope, q_rope, c_kv_new, k_rope_new = L._mla_qkv(p, cfg, x, positions,
+                                                      plain=plain)
+    latent_new = torch.cat([c_kv_new[0], k_rope_new[0, :, 0]], -1)
+    pool_k[li, blk, off, 0] = latent_new.to(pool_k.dtype)
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope.to(torch.float32),
+                         p["wk_abs"])
+    q_lat = torch.cat([q_abs, q_rope.to(torch.float32)], -1)
+    lat = latent_new[None, :, None, :]
+    ctx = ops.paged_latent_chunk_attention(q_lat, pool_k[li], tables[None],
+                                           pos0, spec, latent_new=lat,
+                                           plain=plain)
+    out = torch.einsum("bshr,rhd->bshd", ctx.to(torch.float32),
+                       p["wv_abs"]).to(x.dtype)
+    return qlinear.matmul(out.reshape(B, Cp, -1), p["wo"], plain=plain)
+
+
 def paged_prefill_chunk(cfg: ModelConfig, kinds, specs, misc, layer_params,
                         tokens, pos0: int, pool_k, pool_v, tables, kvq=None,
                         *, plain: bool = False):
@@ -209,8 +299,8 @@ def paged_prefill_chunk(cfg: ModelConfig, kinds, specs, misc, layer_params,
     positions (scratch 0 where the request owns fewer blocks). Each layer
     appends the chunk's KV into the pool and runs causal attention of the
     chunk against everything paged so far (Sarathi-style chunked prefill);
-    ``kvq`` is the pool's quantized-KV bundle or None. Returns chunk logits
-    (Cp, V)."""
+    ``kvq`` is the pool's quantized-KV bundle or None. MLA layers take the
+    absorbed params. Returns chunk logits (Cp, V)."""
     bs = pool_k.shape[2]
     Cp = tokens.shape[1]
     abs_pos = pos0 + torch.arange(Cp, device=tokens.device)
@@ -220,34 +310,80 @@ def paged_prefill_chunk(cfg: ModelConfig, kinds, specs, misc, layer_params,
     x = lm.embed_tokens(cfg, misc, tokens)
     for i, p in enumerate(layer_params):
         h = L.apply_norm(cfg.norm, p["ln1"], x)
-        attn_out = _chunk_gqa_attention(p["attn"], cfg, h, positions, pool_k,
-                                        pool_v, i, tables, blk, off, pos0,
-                                        specs[i], _layer_kvq(kvq, i), plain)
+        if cfg.mla is not None:
+            attn_out = _chunk_mla_attention(p["attn"], cfg, h, positions,
+                                            pool_k, i, tables, blk, off,
+                                            pos0, specs[i], plain)
+        else:
+            attn_out = _chunk_gqa_attention(p["attn"], cfg, h, positions,
+                                            pool_k, pool_v, i, tables, blk,
+                                            off, pos0, specs[i],
+                                            _layer_kvq(kvq, i), plain)
         x = _mlp_residual(p, cfg, x, h, attn_out, plain)
     return lm.unembed(cfg, misc, x)[0]
+
+
+def absorb_mla_decode_weights(cfg: ModelConfig, layer_params):
+    """The absorbed MLA projection of each layer: ``w_ukv`` (dense, or a
+    QTensor dequantized here) becomes ``wk_abs`` (r, H, nope) and
+    ``wv_abs`` (r, H, v) in float32, once per layer list rather than once
+    per step. Layers without ``w_ukv`` pass through."""
+    m = cfg.mla
+    out = []
+    for p in layer_params:
+        attn = p.get("attn") if isinstance(p, dict) else None
+        if attn is None or "w_ukv" not in attn:
+            out.append(p)
+            continue
+        w = attn["w_ukv"]
+        wd = (w.dequantize(torch.float32) if qlinear.is_quantized(w)
+              else w.to(torch.float32))
+        wd = wd.reshape(m.kv_lora_rank, cfg.n_heads,
+                        m.qk_nope_head_dim + m.v_head_dim)
+        attn = {k: v for k, v in attn.items() if k != "w_ukv"}
+        attn["wk_abs"] = wd[..., :m.qk_nope_head_dim].contiguous()
+        attn["wv_abs"] = wd[..., m.qk_nope_head_dim:].contiguous()
+        out.append(dict(p, attn=attn))
+    return tuple(out)
 
 
 class ModelExec:
     """Binds a model's static parts (config, layer kinds, per-layer
     attention specs, embedding/head params) to the step functions; the
-    per-level layer list is passed per call. Runs under ``no_grad``."""
+    per-level layer list is passed per call. Runs under ``no_grad``. For
+    MLA, decode and chunk prefill take the absorbed weights, cached per
+    layer list (the actuator hands out one stable list per swap level)."""
 
     def __init__(self, cfg: ModelConfig, params, kinds, kv_quant=False):
         self.cfg = cfg
         self.kinds = tuple(kinds)
         self.misc = {k: v for k, v in params.items() if k != "segments"}
         self.specs = build_attention_specs(cfg, self.kinds, kv_quant)
+        self._absorb_cache: Dict[int, Tuple[Any, tuple]] = {}
 
     @staticmethod
     def _lp(layer_list) -> List:
         return [p for _, p in layer_list]
 
+    def _absorbed(self, layer_list):
+        """Per-layer params for decode and chunk prefill: for MLA, with the
+        absorbed ``w_ukv`` (computed once per layer list)."""
+        if self.cfg.mla is None:
+            return self._lp(layer_list)
+        hit = self._absorb_cache.get(id(layer_list))
+        if hit is None or hit[0] is not layer_list:
+            # keep the source list so that its id stays valid
+            hit = (layer_list, absorb_mla_decode_weights(
+                self.cfg, self._lp(layer_list)))
+            self._absorb_cache[id(layer_list)] = hit
+        return hit[1]
+
     @torch.no_grad()
     def decode(self, layer_list, tokens, pos, pool_k, pool_v, tables,
                kvq=None, *, plain: bool = False):
         return paged_decode_step(self.cfg, self.kinds, self.specs, self.misc,
-                                 self._lp(layer_list), tokens, pos, pool_k,
-                                 pool_v, tables, kvq, plain=plain)
+                                 self._absorbed(layer_list), tokens, pos,
+                                 pool_k, pool_v, tables, kvq, plain=plain)
 
     @torch.no_grad()
     def prefill(self, layer_list, tokens, pool_k, pool_v, block_ids, *,
@@ -267,6 +403,6 @@ class ModelExec:
     def prefill_chunk(self, layer_list, tokens, pos0: int, pool_k, pool_v,
                       table, kvq=None, *, plain: bool = False):
         return paged_prefill_chunk(self.cfg, self.kinds, self.specs,
-                                   self.misc, self._lp(layer_list), tokens,
-                                   pos0, pool_k, pool_v, table, kvq,
+                                   self.misc, self._absorbed(layer_list),
+                                   tokens, pos0, pool_k, pool_v, table, kvq,
                                    plain=plain)

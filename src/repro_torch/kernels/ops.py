@@ -36,19 +36,34 @@ class AttentionSpec:
     ``kv_quant`` marks the layer's pool as one that may hold quantized
     blocks (the engine's quantize-cold tier is on); the bundle itself is
     passed per call, and a bundle given to a spec without ``kv_quant`` is
-    refused. The JAX spec's MLA ``latent_dv`` lane is not ported yet
-    (ROADMAP queue 2)."""
+    refused. ``latent_dv`` selects the MLA latent mode of chunk attention
+    (:func:`paged_latent_chunk_attention`): keys and values are one latent
+    pool of width ``kv_lora_rank + rope`` (``kv_heads == 1``), scores span
+    the full width and values keep its first ``latent_dv`` (=
+    ``kv_lora_rank``) lanes; it takes no quantized-KV bundle, and the GQA
+    routes refuse it (MLA decode is plain torch in ``engine.model_exec``)."""
     window: int = 0
     softcap: float = 0.0
     scale: Optional[float] = None
     q_heads: Optional[int] = None
     kv_heads: Optional[int] = None
+    latent_dv: Optional[int] = None
     kv_quant: bool = False
 
     def validate(self, q, k_pool, kv_quant=None) -> None:
         if kv_quant is not None and not self.kv_quant:
             raise ValueError("a kv_quant bundle reached an AttentionSpec "
                              "built with kv_quant=False")
+        if self.latent_dv is not None:
+            if k_pool.shape[2] != 1:
+                raise ValueError("the MLA latent mode needs one kv head, "
+                                 f"not a pool {tuple(k_pool.shape)}")
+            if not 0 < self.latent_dv < k_pool.shape[3]:
+                raise ValueError(f"latent_dv={self.latent_dv} must be below "
+                                 f"the latent width {k_pool.shape[3]}")
+            if self.kv_quant:
+                raise ValueError("the MLA latent pool keeps fp blocks: a "
+                                 "latent spec takes no kv_quant")
         if self.q_heads is not None and q.shape[-2] != self.q_heads:
             raise ValueError(f"q heads {q.shape[-2]} != spec {self.q_heads}")
         if self.kv_heads is not None and k_pool.shape[2] != self.kv_heads:
@@ -90,13 +105,21 @@ def wna16_matmul(x2: torch.Tensor, qt, *, bias=None,
 # ---------------------------------------------------------------------------
 # paged attention (K2 decode, K3 chunk prefill)
 # ---------------------------------------------------------------------------
+def _decode_spec(spec, q, k_pool, kv_quant) -> AttentionSpec:
+    spec = spec or AttentionSpec()
+    if spec.latent_dv is not None:
+        raise ValueError("the MLA latent mode is a chunk-attention lane; "
+                         "MLA decode is plain torch (model_exec)")
+    spec.validate(q, k_pool, kv_quant)
+    return spec
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                     spec: AttentionSpec = None, *, kv_quant=None,
                     plain: bool = False):
     """Context-only decode read: every ``context_lens[b]`` token lives in
     the pool and the query is the one at ``context_lens[b] - 1``."""
-    spec = spec or AttentionSpec()
-    spec.validate(q, k_pool, kv_quant)
+    spec = _decode_spec(spec, q, k_pool, kv_quant)
     kw = dict(scale=spec.resolved_scale(q.shape[-1]), window=spec.window,
               softcap=spec.softcap, fused_new=False, kv_quant=kv_quant)
     if not _on_card(q, plain):
@@ -114,8 +137,7 @@ def paged_decode_attention(q, k_new, v_new, k_pool, v_pool, block_tables,
     current token (k_new, v_new) (B, KVH, Dh) at position ``pos[b]``, which
     is cast to the pool dtype and never read back from the pool (the
     caller's scatter of it into the pool is independent of this read)."""
-    spec = spec or AttentionSpec()
-    spec.validate(q, k_pool, kv_quant)
+    spec = _decode_spec(spec, q, k_pool, kv_quant)
     kn = k_new.to(k_pool.dtype).contiguous()
     vn = v_new.to(v_pool.dtype).contiguous()
     kw = dict(scale=spec.resolved_scale(q.shape[-1]), window=spec.window,
@@ -134,8 +156,12 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, pos0: int,
     """Chunk attention: C queries (B, C, H, Dh) at positions ``pos0 + i``.
     With the chunk's (k_new, v_new) (B, C, KVH, Dh) they enter as operands
     and the pool is read only below ``pos0``; without them the chunk's KV is
-    read back from the pool, where the caller has scattered it."""
+    read back from the pool, where the caller has scattered it. A latent
+    spec is refused: MLA goes through :func:`paged_latent_chunk_attention`."""
     spec = spec or AttentionSpec()
+    if spec.latent_dv is not None:
+        raise ValueError("an MLA latent spec takes the latent route "
+                         "(paged_latent_chunk_attention)")
     spec.validate(q, k_pool, kv_quant)
     fused = k_new is not None
     kn = vn = None
@@ -150,3 +176,28 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, pos0: int,
     from repro_torch.kernels.paged_attention import paged_chunk
     return paged_chunk(q.contiguous(), kn, vn, k_pool, v_pool, block_tables,
                        pos0, **kw)
+
+
+def paged_latent_chunk_attention(q, pool, block_tables, pos0: int,
+                                 spec: AttentionSpec, *, latent_new=None,
+                                 plain: bool = False):
+    """K3's MLA latent mode (K3-mla): the absorbed queries q (B, C, H, Dh)
+    at positions ``pos0 + i`` over the one latent pool (cap, bs, 1, Dh),
+    which serves as keys over all Dh lanes and as values over the first
+    ``spec.latent_dv``. With the chunk's latent rows ``latent_new`` (B, C,
+    1, Dh) they enter as fused keys and values and the pool is read only
+    below ``pos0``; without them they are read back from the pool. Returns
+    (B, C, H, latent_dv), scaled by the spec's explicit ``scale``."""
+    if spec.latent_dv is None:
+        raise ValueError("the latent route takes a spec with latent_dv")
+    spec.validate(q, pool)
+    fused = latent_new is not None
+    ln = latent_new.to(pool.dtype).contiguous() if fused else None
+    kw = dict(scale=spec.resolved_scale(q.shape[-1]), window=spec.window,
+              softcap=spec.softcap, fused_new=fused)
+    if not _on_card(q, plain):
+        return ref.paged_chunk_ref(q, ln, ln, pool, pool, block_tables, pos0,
+                                   dv=spec.latent_dv, **kw)
+    from repro_torch.kernels.paged_attention import paged_chunk_mla
+    return paged_chunk_mla(q.contiguous(), ln, pool, block_tables, pos0,
+                           dv=spec.latent_dv, **kw)

@@ -14,6 +14,12 @@ float32 ``(cap,)`` scale/zero rows); with it the kernel's KVQ lane
 dequantizes every visited pool block (K2-q, K3-q). Each wrapper counts the
 calls that launched its kernel: ``launches`` those without a bundle,
 ``quant_launches`` those with one.
+
+``paged_chunk_mla`` is K3's MLA latent mode (K3-mla, the wrapper of
+``csrc/paged_attention_mla.cu``): one latent pool serves every query head,
+scores span its full width and values are its first ``dv`` lanes. Its
+plain version is ``paged_chunk_ref(..., dv=dv)`` with the latent pool as
+both pools; it counts its launches in ``paged_chunk_mla.launches``.
 """
 from __future__ import annotations
 
@@ -27,6 +33,10 @@ _SMEM_LIMIT = 48 * 1024
 _MAX_DECODE_G = 8             # csrc kMaxG
 _HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# (key width, value width) pairs and pool dtypes that csrc/
+# paged_attention_mla.cu instantiates: DeepSeek-V3's latent (512 + 64, 512)
+_LATENT_DIMS = ((576, 512),)
+_LATENT_POOL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _lib():
@@ -41,6 +51,17 @@ def _lib():
                                           i, i, i, i, i, f, i, f, i,
                                           p, p, p, p, p, p, p]
         lib.morph_paged_chunk.restype = ctypes.c_int
+    return lib
+
+
+def _lib_mla():
+    lib = build.load("paged_attention_mla")
+    fn = lib.morph_paged_chunk_mla
+    if not fn.argtypes:      # else pointers pass as int32
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, i, p, p, i, p, i, i, i, i, i, i, i, f, i, f, i,
+                       p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -202,5 +223,67 @@ def paged_chunk(q, k_new, v_new, k_pool, v_pool, tables, pos0: int, *,
     return out
 
 
+def paged_chunk_mla(q, latent_new, pool, tables, pos0: int, *, dv: int,
+                    scale: float, window: int = 0, softcap: float = 0.0,
+                    fused_new: bool = True) -> torch.Tensor:
+    """K3's MLA latent mode. q (B, C, H, Dh) float32: the absorbed queries
+    at positions ``pos0 + i``; pool (cap, bs, 1, Dh): the latent pool, read
+    for keys over all Dh lanes and for values over the first ``dv``. With
+    ``fused_new`` the chunk's own latent rows ``latent_new`` (B, C, 1, Dh)
+    in the pool dtype enter under the intra-chunk causal mask and the pool
+    is read only below ``pos0``; otherwise they are read back from the pool.
+    Returns (B, C, H, dv) float32. Takes only the (Dh, dv) pairs and pool
+    dtypes the kernel is built for, and raises for any other."""
+    what = "paged_chunk_mla"
+    _check(q.ndim == 4 and q.dtype == torch.float32, what,
+           "q must be float32 (B, C, H, Dh)")
+    B, C, H, Dh = q.shape
+    _check(pool.ndim == 4 and pool.shape[2] == 1, what,
+           "the latent pool must be (cap, bs, 1, Dh)")
+    _check((Dh, dv) in _LATENT_DIMS and pool.shape[3] == Dh, what,
+           f"latent width (Dh {Dh}, pool {pool.shape[3]}, dv {dv}); the "
+           f"kernel is built for {_LATENT_DIMS}")
+    _check(pool.dtype in _LATENT_POOL_DTYPES, what,
+           f"pool dtype {pool.dtype} (takes {_LATENT_POOL_DTYPES})")
+    _check(tables.dtype == torch.int32 and tables.ndim == 2
+           and tables.shape[0] == B, what, "tables must be int32 (B, nb)")
+    if fused_new:
+        _check(latent_new is not None
+               and tuple(latent_new.shape) == (B, C, 1, Dh)
+               and latent_new.dtype == pool.dtype, what,
+               f"latent_new must be ({B}, {C}, 1, {Dh}) in the pool dtype")
+    else:
+        latent_new = None
+    for name, t in (("q", q), ("pool", pool), ("tables", tables),
+                    ("latent_new", latent_new)):
+        if t is not None:
+            _check(t.device == q.device, what,
+                   f"{name} is on {t.device}, q on {q.device}")
+            _check(t.is_contiguous(), what, f"{name} must be contiguous")
+    bs = pool.shape[1]
+    _check(bs * Dh * 4 <= _SMEM_LIMIT, what,
+           f"block {bs} x latent width {Dh} exceeds the staging buffer")
+    pos0 = int(pos0)
+    _check(pos0 >= 0, what, "pos0 must be >= 0")
+    _check(pos0 + (0 if fused_new else C) <= tables.shape[1] * bs, what,
+           "tables do not cover the positions read")
+    _check_device(what, q)
+    out = torch.empty((B, C, H, dv), dtype=q.dtype, device=q.device)
+    if B == 0 or C == 0:
+        return out
+    lib = _lib_mla()
+    with torch.cuda.device(q.device):
+        rc = lib.morph_paged_chunk_mla(
+            q.data_ptr(), pool.data_ptr(), build.dtype_code(pool.dtype),
+            None if latent_new is None else latent_new.data_ptr(),
+            tables.data_ptr(), pos0, out.data_ptr(), B, C, H, Dh, dv, bs,
+            tables.shape[1], float(scale), int(window), float(softcap),
+            int(fused_new), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check_rc(lib, rc, what)
+    paged_chunk_mla.launches += 1
+    return out
+
+
 paged_decode.launches = paged_decode.quant_launches = 0
 paged_chunk.launches = paged_chunk.quant_launches = 0
+paged_chunk_mla.launches = 0

@@ -1,5 +1,6 @@
-"""Plain torch versions of the three kernels: the same functions, written
-as gathers, dense masked softmax and ``torch.matmul`` in float32.
+"""Plain torch versions of the three kernels and their lanes: the same
+functions, written as gathers, dense masked softmax and ``torch.matmul`` in
+float32 (``paged_chunk_ref(..., dv=...)`` is K3-mla's).
 
 The two attention versions take the optional quantized-KV bundle
 ``kv_quant=(qk, qv, k_scale, v_scale, k_zero, v_zero)`` of one layer: int8
@@ -106,20 +107,26 @@ def paged_decode_ref(q, k_new, v_new, k_pool, v_pool, tables, lens, *,
 
 def paged_chunk_ref(q, k_new, v_new, k_pool, v_pool, tables, pos0: int, *,
                     scale=None, window: int = 0, softcap: float = 0.0,
-                    fused_new: bool = True, kv_quant=None) -> torch.Tensor:
-    """Gather + ``naive_attention``; the function of ``paged_chunk``.
+                    fused_new: bool = True, kv_quant=None,
+                    dv=None) -> torch.Tensor:
+    """Gather + ``naive_attention``; the function of ``paged_chunk`` and,
+    with ``dv``, of ``paged_chunk_mla``.
 
     q (B, C, H, Dh) at positions ``pos0 + i``. Without ``fused_new`` the
     pool already holds the chunk's KV and query i sees every pool position
     ``<= pos0 + i`` (the JAX package's ``paged_chunk_gather_attention``).
     With ``fused_new`` the pool is read only below ``pos0`` and the chunk's
     (k_new, v_new) (B, C, KVH, Dh) take positions ``pos0 ..``; they are
-    always fp, a bundle dequantizes only the pool's blocks."""
+    always fp, a bundle dequantizes only the pool's blocks. ``dv`` < Dh is
+    the MLA latent mode: scores span all Dh lanes and the values keep the
+    first ``dv`` lanes, giving (B, C, H, dv)."""
     from repro_torch.models.layers import naive_attention
     pos0 = int(pos0)
     gk, gv = _gather_kv(k_pool, v_pool, tables, kv_quant)
     if fused_new:
         gk = torch.cat([gk[:, :pos0], k_new.to(gk.dtype)], dim=1)
         gv = torch.cat([gv[:, :pos0], v_new.to(gv.dtype)], dim=1)
+    if dv is not None:
+        gv = gv[..., :dv]
     return naive_attention(q, gk, gv, causal=True, q_offset=pos0,
                            window=window, softcap=softcap, scale=scale)

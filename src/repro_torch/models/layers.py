@@ -1,4 +1,5 @@
-"""Shared layer primitives of the dense (GQA) decoder, in torch.
+"""Shared layer primitives of the dense decoders (GQA and DeepSeek's MLA),
+in torch.
 
 Every matmul goes through :func:`repro_torch.quant.qlinear.matmul`, so a
 layer executes the same way whether its weights are dense or
@@ -176,6 +177,79 @@ def gqa_prefill(p, cfg, x, *, window: int = 0, plain: bool = False):
 def gqa_apply(p, cfg, x, *, window: int = 0):
     """Full-sequence causal GQA attention (prefill)."""
     return gqa_prefill(p, cfg, x, window=window)[0]
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+def mla_init(gen, cfg, dtype):
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": dense_init(gen, (D, m.q_lora_rank), dtype=dtype),
+        "q_norm": norm_init("rmsnorm", m.q_lora_rank, dtype, gen.device),
+        "w_uq": dense_init(gen, (m.q_lora_rank, H * qk), dtype=dtype),
+        "w_dkv": dense_init(gen, (D, m.kv_lora_rank + m.qk_rope_head_dim),
+                            dtype=dtype),
+        "kv_norm": norm_init("rmsnorm", m.kv_lora_rank, dtype, gen.device),
+        "w_ukv": dense_init(gen, (m.kv_lora_rank,
+                                  H * (m.qk_nope_head_dim + m.v_head_dim)),
+                            dtype=dtype),
+        "wo": dense_init(gen, (H * m.v_head_dim, D), dtype=dtype),
+    }
+
+
+def _mla_qkv(p, cfg, x, positions, plain: bool = False):
+    """x (B, S, D) → q_nope (B, S, H, nope), q_rope (B, S, H, rope), the
+    normed latent c_kv (B, S, r) and the shared rotary key k_rope
+    (B, S, 1, rope)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    mm = (lambda a, w: qlinear.matmul(a, p[w], plain=plain))
+    cq = apply_norm("rmsnorm", p["q_norm"], mm(x, "w_dq"))
+    q = mm(cq, "w_uq").reshape(B, S, H,
+                               m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim,
+                                     m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = torch.split(mm(x, "w_dkv"), [m.kv_lora_rank,
+                                                m.qk_rope_head_dim], dim=-1)
+    c_kv = apply_norm("rmsnorm", p["kv_norm"], c_kv)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand_kv(p, cfg, c_kv, plain: bool = False):
+    """The latent c_kv (B, T, r) expanded to per-head (k_nope, v)."""
+    m = cfg.mla
+    B, T, _ = c_kv.shape
+    kv = qlinear.matmul(c_kv, p["w_ukv"], plain=plain).reshape(
+        B, T, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    return torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+
+
+def mla_prefill(p, cfg, x, *, plain: bool = False):
+    """Full-sequence causal MLA attention (latent expanded to per-head K/V)
+    that also returns the latent cache rows (B, S, r + rope)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions,
+                                            plain=plain)
+    k_nope, v = _mla_expand_kv(p, cfg, c_kv, plain=plain)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, cfg.n_heads,
+                                         m.qk_rope_head_dim)], dim=-1)
+    out = naive_attention(q, k, v, causal=True)
+    y = qlinear.matmul(out.reshape(B, S, -1), p["wo"], plain=plain)
+    return y, torch.cat([c_kv, k_rope[:, :, 0, :]], dim=-1)
+
+
+def mla_apply(p, cfg, x):
+    """Full-sequence causal MLA attention (prefill)."""
+    return mla_prefill(p, cfg, x)[0]
 
 
 # ---------------------------------------------------------------------------

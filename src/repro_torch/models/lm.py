@@ -1,4 +1,5 @@
-"""Decoder-only LM, DENSE family (the paper's Llama-2 evaluation models).
+"""Decoder-only LM: the DENSE family (the paper's Llama-2 evaluation
+models) and DeepSeek's MLA layers without experts (``mla_dense``).
 
 Parameters keep the JAX package's tree: ``{"embed", "final_norm",
 "lm_head", "segments"}``, where ``segments`` holds one entry per maximal
@@ -7,8 +8,10 @@ stacked with a leading repeat dim when the run repeats. The serving engine
 works on the **unrolled** per-layer list (``params_to_layer_list``), where
 each layer may independently be dense or quantized.
 
-The other families (MoE, MLA, SSM/hybrid, enc-dec, VLM) are not ported
-yet; they raise ``NotImplementedError`` naming ROADMAP queue 1.
+MoE layers (``moe``, ``mla_moe``) and the other families (SSM/hybrid,
+enc-dec, VLM) are not ported yet; they raise ``NotImplementedError``
+naming ROADMAP queue 1. So DeepSeek-V3 cut to its ``first_k_dense`` dense
+MLA layers runs, and the full model is refused.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, MOE, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.quant import qlinear
 
@@ -29,12 +32,32 @@ def torch_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else _DTYPES[str(name)]
 
 
+def _kinds(cfg: ModelConfig) -> List[str]:
+    """The JAX package's layer-kind plan for the attention families."""
+    kinds = []
+    for i in range(cfg.n_layers):
+        if cfg.moe is not None:
+            m = cfg.moe
+            if i >= m.first_k_dense and \
+                    (i - m.first_k_dense) % m.moe_layer_step \
+                    == m.moe_layer_step - 1:
+                kinds.append("mla_moe" if cfg.mla else "moe")
+                continue
+        kinds.append("mla_dense" if cfg.mla else "dense")
+    return kinds
+
+
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != DENSE or cfg.mla is not None or cfg.moe is not None:
+    if cfg.family not in (DENSE, MOE):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (mla={cfg.mla is not None}, "
-            f"moe={cfg.moe is not None}) is not ported to torch yet — "
-            "ROADMAP.md queue 1, 'Other model families'")
+            f"{cfg.name}: family {cfg.family!r} is not ported to torch yet "
+            "— ROADMAP.md queue 1, 'Other model families'")
+    moe = [i for i, k in enumerate(_kinds(cfg)) if k in ("moe", "mla_moe")]
+    if moe:
+        raise NotImplementedError(
+            f"{cfg.name}: layers {moe[0]}..{moe[-1]} are MoE layers, whose "
+            "expert FFN is not ported to torch yet — ROADMAP.md queue 1, "
+            "'MoE'")
 
 
 # ---------------------------------------------------------------------------
@@ -42,7 +65,7 @@ def check_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 def layer_kinds(cfg: ModelConfig) -> List[str]:
     check_family(cfg)
-    return ["dense"] * cfg.n_layers
+    return _kinds(cfg)
 
 
 def layer_window(cfg: ModelConfig, i: int, seq_hint: int = 0) -> int:
@@ -85,9 +108,21 @@ def segment_plan(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
 # ---------------------------------------------------------------------------
 # Block init / apply
 # ---------------------------------------------------------------------------
+def _attn_init(gen, cfg, dtype):
+    if cfg.mla is not None:
+        return L.mla_init(gen, cfg, dtype)
+    return L.gqa_init(gen, cfg, dtype)
+
+
+def _attn_apply(p, cfg, x, *, window):
+    if cfg.mla is not None:
+        return L.mla_apply(p, cfg, x)
+    return L.gqa_apply(p, cfg, x, window=window)
+
+
 def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig, dtype):
     p = {"ln1": L.norm_init(cfg.norm, cfg.d_model, dtype, gen.device),
-         "attn": L.gqa_init(gen, cfg, dtype)}
+         "attn": _attn_init(gen, cfg, dtype)}
     if not cfg.parallel_block:
         p["ln2"] = L.norm_init(cfg.norm, cfg.d_model, dtype, gen.device)
     p["mlp"] = L.mlp_init(gen, cfg, dtype=dtype)
@@ -96,9 +131,9 @@ def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig, dtype):
 
 def block_apply(kind: str, p, cfg: ModelConfig, x, *, window: int = 0,
                 moe_cf: float = 1.25):
-    """Full-sequence block. Returns (x, aux); aux is empty for DENSE."""
+    """Full-sequence block. Returns (x, aux); aux is empty without MoE."""
     h = L.apply_norm(cfg.norm, p["ln1"], x)
-    attn_out = L.gqa_apply(p["attn"], cfg, h, window=window)
+    attn_out = _attn_apply(p["attn"], cfg, h, window=window)
     if cfg.parallel_block:
         return x + attn_out + L.mlp_apply(p["mlp"], cfg, h), {}
     x = x + attn_out
@@ -108,16 +143,22 @@ def block_apply(kind: str, p, cfg: ModelConfig, x, *, window: int = 0,
 
 def block_prefill(kind: str, p, cfg: ModelConfig, x, *, window: int = 0,
                   plain: bool = False):
-    """Full-seq block that also returns this layer's {"k", "v"} payload."""
+    """Full-seq block that also returns this layer's cache payload: GQA →
+    {"k", "v"}, MLA → {"latent"}."""
     h = L.apply_norm(cfg.norm, p["ln1"], x)
-    attn_out, (k, v) = L.gqa_prefill(p["attn"], cfg, h, window=window,
-                                     plain=plain)
+    if cfg.mla is not None:
+        attn_out, latent = L.mla_prefill(p["attn"], cfg, h, plain=plain)
+        payload = {"latent": latent}
+    else:
+        attn_out, (k, v) = L.gqa_prefill(p["attn"], cfg, h, window=window,
+                                         plain=plain)
+        payload = {"k": k, "v": v}
     if cfg.parallel_block:
         y = L.mlp_apply(p["mlp"], cfg, h, plain=plain)
-        return x + attn_out + y, {"k": k, "v": v}
+        return x + attn_out + y, payload
     x = x + attn_out
     h2 = L.apply_norm(cfg.norm, p["ln2"], x)
-    return x + L.mlp_apply(p["mlp"], cfg, h2, plain=plain), {"k": k, "v": v}
+    return x + L.mlp_apply(p["mlp"], cfg, h2, plain=plain), payload
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +257,7 @@ def forward_unrolled(cfg: ModelConfig, params, layer_list, tokens):
 
 def prefill_collect(cfg: ModelConfig, params, layer_list, tokens, *,
                     plain: bool = False):
-    """Unrolled prefill returning (logits, [per-layer {"k", "v"}])."""
+    """Unrolled prefill returning (logits, [per-layer cache payload])."""
     x = embed_tokens(cfg, params, tokens)
     payloads = []
     for i, (kind, lp) in enumerate(layer_list):

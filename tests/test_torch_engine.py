@@ -106,15 +106,17 @@ def test_real_engine_matches_jax():
 
 
 def test_engine_refuses_what_is_not_ported():
-    """An MLA model (its latent pool and K3's latent mode are not ported)
-    raises at the engine and at the pool, and params on another device than
-    the engine's raise instead of moving."""
+    """A config with MoE layers (DeepSeek-V3 past its dense MLA layers: the
+    expert FFN is not ported) raises at the engine, naming the MoE item of
+    ROADMAP queue 1, while its latent pool alone is built; and params on
+    another device than the engine's raise instead of moving."""
     params, _, tparams = llama_params()
     sc = serving(params, TServingConfig)
-    mla = t_reduced(DEEPSEEK_V3_671B)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(mla, None, sc, TEC(compute="sim"), device="cpu")
-    with pytest.raises(NotImplementedError, match="MLA latent pools"):
-        PagedKVPool(mla, 8, 16, device="cpu")
+    mla_moe = t_reduced(DEEPSEEK_V3_671B)         # mla_dense, mla_moe x 3
+    for cfg in (mla_moe, DEEPSEEK_V3_671B):
+        with pytest.raises(NotImplementedError, match="queue 1, 'MoE'"):
+            TEngine(cfg, None, sc, TEC(compute="sim"), device="cpu")
+    pool = PagedKVPool(mla_moe, 8, 16, device="cpu")
+    assert tuple(pool.k.shape) == (4, 8, 16, 1, 48)
     with pytest.raises(ValueError, match="params live on"):
         TEngine(tcfg(), tparams, sc, TEC(), device="meta")
