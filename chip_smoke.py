@@ -6,19 +6,24 @@
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``src/repro_torch/kernels/build`` and runs five phases, each of which
+``src/repro_torch/kernels/build`` and runs seven phases, each of which
 raises on failure:
 
 1. device: the card's name and power limit, torch/CUDA versions, and the
    kernels' build time;
-2. kernels: every hand-written kernel (wNa16 GEMM at both models' matmul
-   shapes, paged decode, chunk prefill, and the decode and chunk walks'
-   quantized-KV lane over pools quantized by
+2. kernels: the launch planner (``kernels/plan.py``) against every built
+   chunk instantiation, then every hand-written kernel (wNa16 GEMM at
+   both models' matmul shapes, paged decode at G = 1, 4, 6 and 12, chunk
+   prefill at G = 1, 4, 6, 7 and 12 and head widths 64, 128 and 256, and
+   the decode and chunk walks' quantized-KV lane over pools quantized by
    ``PagedKVPool.quantize_blocks``, int8 and int4) against its plain
    torch version at the main path's shapes, with the largest
    error against a stated tolerance and CUDA-event medians of the kernel,
-   the plain version and one library call; a zeroed quantized-KV sidecar
-   must give the no-quant kernel's output exactly;
+   the plain version and one library call, beside the least time the
+   card could take (the chunk walks: at their tensor-core passes, with
+   the float32 CUDA-core bound of earlier runs logged beside it); a
+   zeroed quantized-KV
+   sidecar must give the no-quant kernel's output exactly;
 3. engine: the quickstart path — LIS profile, int4 swap plan, the
    token-budgeted ``MorphServeEngine`` serving a bursty trace with real
    compute — on Llama-2-7B at full width (d 4096, 32 heads, d_ff 11008,
@@ -64,6 +69,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12
 BF16_FLOP_S = 989e12
 F32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12      # the tensor-core rate the chunk walks run at
 
 # kernel-vs-plain tolerance per output dtype, elementwise:
 # |kernel - plain| <= RTOL * |plain| + ATOL * max|plain|. Both sides
@@ -255,14 +261,73 @@ def _dequantized(torch, kp, vp, kvq):
             vp.float() + qv.float() * vs[e] + vz[e])
 
 
+def plan_check(torch):
+    """The pure-Python launch planner against the built libraries: every
+    chunk instantiation the wrappers admit must report the planner's
+    dynamic shared bytes, key tile, passes, threads and row tile. Returns
+    the built plans by (Dh, Dv, q dtype, pool dtype, kvq)."""
+    from repro_torch.kernels import plan
+    from repro_torch.kernels.paged_attention import built_chunk_plan
+    combos = ([(Dh, Dh, qd, kd, kvq) for Dh in plan.HEAD_DIMS
+               for qd in plan.DTYPES for kd in plan.DTYPES
+               for kvq in (False, True)]
+              + [(Dh, Dv, "float32", kd, False) for Dh, Dv in plan.LATENT_DIMS
+                 for kd in plan.LATENT_POOL_DTYPES])
+    most, built = 0, {}
+    for Dh, Dv, qd, kd, kvq in combos:
+        H, KVH = (128, 1) if Dv != Dh else (1, 1)
+        p = plan.chunk_plan(B=1, C=1, H=H, KVH=KVH, Dh=Dh, Dv=Dv, q_dtype=qd,
+                            kv_dtype=kd, kvq=kvq)
+        want = (p.smem, p.key_tile, p.score_passes, p.value_passes,
+                p.threads, p.row_tile)
+        got = built_chunk_plan(getattr(torch, qd), getattr(torch, kd), Dh, Dv,
+                               kvq)
+        built[Dh, Dv, qd, kd, kvq] = got
+        if got != want:
+            raise AssertionError(f"plan of ({Dh}, {Dv}, q {qd}, pool {kd}, "
+                                 f"kvq {kvq}): built {got}, planned {want}")
+        most = max(most, p.smem)
+    log(f"launch planner: {len(combos)} chunk instantiations report the "
+        f"planned bytes, key tile, passes, threads and row tile (largest "
+        f"{most} bytes of {plan.SMEM_LIMIT})")
+    return built
+
+
+def tensor_core_bounds(results, built):
+    """Each chunk case's least time on this card, in ms, as its
+    ``bound_ms``: the largest of its bytes over the HBM rate, its Q K^T and
+    P V FLOPs times the mma passes its built instantiation takes over the
+    TF32 rate, and its CUDA-core FLOPs (the quantized lane's dequant) over
+    the float32 rate."""
+    for r in results:
+        w = r.get("work")
+        if w is None:
+            continue
+        _, _, score, value = built[w["plan"]][:4]
+        t_bytes = w["nbytes"] / HBM_BYTES_S
+        t_ops = max((w["score_flops"] * score + w["value_flops"] * value)
+                    / TF32_FLOP_S, w["cuda_flops"] / F32_FLOP_S)
+        r["bound_ms"] = max(t_bytes, t_ops) * 1e3
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"  {r['case']}: tensor-core bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; passes {score}/{value}), kernel "
+            f"{r['ms'] / r['bound_ms']:.1f}x it (float32 bound "
+            f"{r['f32_bound_ms']:.4f} ms)")
+
+
+# (B, ctx, H, KVH, window, softcap, fused). G = H / KVH: 1, 4, and past
+# the 8 rows a CTA holds, 6 (48 / 8: Nemotron-4-15B's layout) and 12
+# (96 / 8: Command R+'s), which take two row groups
+WIDE_G = [(8, 2048, H, 8, 0, 0.0, fused) for H in (48, 96)
+          for fused in (True, False)]
 DECODE_CASES = ([(B, ctx, 32, 32, 0, 0.0, fused) for B in (1, 8)
                  for ctx in (17, 256, 2048) for fused in (True, False)]
                 + [(8, 256, 32, 8, 0, 0.0, True),
                    (8, 2048, 32, 32, 64, 30.0, True),
-                   (8, 2048, 32, 8, 64, 30.0, False)])
+                   (8, 2048, 32, 8, 64, 30.0, False)] + WIDE_G)
 DECODE_Q_CASES = [(8, 2048, 32, 32, 0, 0.0, True),
                   (8, 2048, 32, 8, 64, 30.0, True),
-                  (8, 2048, 32, 32, 0, 0.0, False)]
+                  (8, 2048, 32, 32, 0, 0.0, False)] + WIDE_G
 
 
 def decode_cases(torch, timer, results, cases=DECODE_CASES, bits=None):
@@ -358,26 +423,36 @@ def decode_cases(torch, timer, results, cases=DECODE_CASES, bits=None):
             + ("" if noop is None else f"; no-op bundle diff {noop}"))
 
 
-CHUNK_CASES = ([(Cp, pos0, 32, 32, 0, 0.0, fused) for Cp in (16, 256)
+# (Cp, pos0, H, KVH, Dh, window, softcap, fused): Llama-2-7B's 32 / 32
+# heads of 128, GQA at G = 4, 6 (Nemotron-4-15B) and 12 (Command R+), and
+# the other widths the tiling serves: Dh 64 at 14 / 2 heads (InternVL2-1B's
+# language model, G = 7) and Dh 256 at 16 / 16 (Gemma-7B's attention)
+CHUNK_CASES = ([(Cp, pos0, 32, 32, 128, 0, 0.0, fused) for Cp in (16, 256)
                 for pos0 in (0, 200) for fused in (True, False)]
-               + [(256, 200, 32, 8, 0, 0.0, True),
-                  (256, 200, 32, 32, 64, 30.0, True),
-                  (16, 200, 32, 8, 64, 30.0, False)])
-CHUNK_Q_CASES = [(Cp, 200, 32, 32, 0, 0.0, fused) for Cp in (16, 256)
-                 for fused in (True, False)]
+               + [(256, 200, 32, 8, 128, 0, 0.0, True),
+                  (256, 200, 32, 32, 128, 64, 30.0, True),
+                  (16, 200, 32, 8, 128, 64, 30.0, False)]
+               + [(256, 200, H, 8, 128, 0, 0.0, fused) for H in (48, 96)
+                  for fused in (True, False)]
+               + [(256, 200, 14, 2, 64, 0, 0.0, True),
+                  (256, 200, 16, 16, 256, 0, 0.0, True)])
+CHUNK_Q_CASES = ([(Cp, 200, 32, 32, 128, 0, 0.0, fused) for Cp in (16, 256)
+                  for fused in (True, False)]
+                 + [(256, 200, H, 8, 128, 0, 0.0, True) for H in (48, 96)])
 
 
 def chunk_cases(torch, timer, results, cases=CHUNK_CASES, bits=None):
     """K3 (``bits=None``) or, with ``bits``, K3-q: the context blocks wholly
     below the chunk are quantized through the pool's codec (the chunk's own
-    blocks are the sequence's tail)."""
+    blocks are the sequence's tail). Each row carries the work its
+    tensor-core bound is computed from (``tensor_core_bounds``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_chunk
     gen = torch.Generator(device="cuda").manual_seed(13 if bits is None
                                                      else 50 + bits)
-    bs, Dh = 16, 128
+    bs = 16
     kernel = "paged_chunk" if bits is None else "paged_chunk_q"
-    for Cp, pos0, H, KVH, window, softcap, fused in cases:
+    for Cp, pos0, H, KVH, Dh, window, softcap, fused in cases:
         G = H // KVH
         kp, vp, tables = _pool_case(torch, gen, 1, [pos0 + Cp], KVH, Dh, bs)
         q = torch.randn((1, Cp, H, Dh), generator=gen, device="cuda").to(
@@ -411,8 +486,9 @@ def chunk_cases(torch, timer, results, cases=CHUNK_CASES, bits=None):
         want = ref.paged_chunk_ref(*a, **kw)
         got = paged_chunk(*a, **kw)
         torch.cuda.synchronize()
-        name = (f"chunk Cp={Cp} pos0={pos0} H={H} KVH={KVH} w={window} "
-                f"cap={softcap} fused={fused}"
+        name = (f"chunk Cp={Cp} pos0={pos0} H={H} KVH={KVH}"
+                + ("" if Dh == 128 else f" Dh={Dh}")
+                + f" w={window} cap={softcap} fused={fused}"
                 + ("" if bits is None else f" int{bits}"))
         err = check_close(name, got, want)
         t_k = timer.ms(lambda: paged_chunk(*a, **kw))
@@ -428,12 +504,16 @@ def chunk_cases(torch, timer, results, cases=CHUNK_CASES, bits=None):
                   + (Cp * KVH * Dh * 4 * 2 if fused else 0)
                   + tables.numel() * 4)
         flops = 4 * Dh * H * sum(n_vis)
+        dequant = 0 if bits is None else 6 * KVH * Dh * pool_tok
         if bits is not None:
             nbytes += 4 * 4 * (-(-pool_tok // bs) + 1)
-            flops += 6 * KVH * Dh * pool_tok
-        bound = max(nbytes / HBM_BYTES_S, flops / F32_FLOP_S) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_S >= flops / F32_FLOP_S \
-            else "operations"
+        bound = max(nbytes / HBM_BYTES_S,
+                    (flops + dequant) / F32_FLOP_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_S >= (flops + dequant) \
+            / F32_FLOP_S else "operations"
+        work = dict(plan=(Dh, Dh, "bfloat16", "float32", bits is not None),
+                    nbytes=nbytes, score_flops=flops // 2,
+                    value_flops=flops // 2, cuda_flops=dequant)
         kp2, vp2 = (kp, vp) if bits is None else _dequantized(torch, kp, vp,
                                                               kvq)
         if fused:
@@ -452,10 +532,10 @@ def chunk_cases(torch, timer, results, cases=CHUNK_CASES, bits=None):
                              T, mask[None, None], G)
         t_l = timer.ms(lib)
         results.append(dict(kernel=kernel, case=name, err=err, ms=t_k,
-                            plain_ms=t_p, library_ms=t_l, bound_ms=bound,
-                            bound_by=by, noop_err=noop))
+                            plain_ms=t_p, library_ms=t_l, f32_bound_ms=bound,
+                            f32_bound_by=by, work=work, noop_err=noop))
         log(f"  {name}: err {err:.2e} kernel {t_k:.4f} ms plain {t_p:.4f} ms "
-            f"sdpa {t_l:.4f} ms bound {bound:.4f} ms ({by})"
+            f"sdpa {t_l:.4f} ms float32 bound {bound:.4f} ms ({by})"
             + ("" if noop is None else f"; no-op bundle diff {noop}"))
 
 
@@ -510,6 +590,9 @@ def mla_chunk_cases(torch, timer, results):
         bound = max(nbytes / HBM_BYTES_S, flops / F32_FLOP_S) * 1e3
         by = "bytes" if nbytes / HBM_BYTES_S >= flops / F32_FLOP_S \
             else "operations"
+        work = dict(plan=(W, dv, "float32", pdt, False), nbytes=nbytes,
+                    score_flops=2 * H * t_vis * W,
+                    value_flops=2 * H * t_vis * dv, cuda_flops=0)
         # library: SDPA over the pre-gathered latent, keys expanded over
         # the heads, values = keys[..., :dv]
         T = pos0 + Cp
@@ -528,9 +611,9 @@ def mla_chunk_cases(torch, timer, results):
         del k, v, qh
         results.append(dict(kernel="paged_chunk_mla", case=name, err=err,
                             ms=t_k, plain_ms=t_p, library_ms=t_l,
-                            bound_ms=bound, bound_by=by))
+                            f32_bound_ms=bound, f32_bound_by=by, work=work))
         log(f"  {name}: err {err:.2e} kernel {t_k:.4f} ms plain {t_p:.4f} ms "
-            f"sdpa {t_l:.4f} ms bound {bound:.4f} ms ({by})")
+            f"sdpa {t_l:.4f} ms float32 bound {bound:.4f} ms ({by})")
 
     # a latent width the kernel lacks: CUDA tensors raise, never go plain
     n0 = paged_chunk_mla.launches
@@ -811,6 +894,7 @@ def main() -> int:
     # 2. kernels vs plain versions at the main path's shapes
     timer = Timer(torch)
     results = []
+    built = plan_check(torch)
     log("kernel phase (bf16 activations, float32 pool; tolerance "
         f"|k-p| <= rtol*|p| + atol*max|p|, {TOL})")
     t0 = time.perf_counter()
@@ -826,6 +910,9 @@ def main() -> int:
     log("K3-mla, the chunk walk's latent mode (float32 q and latent pool; "
         f"tolerance {TOL['float32']})")
     mla_chunk_cases(torch, timer, results)
+    log("chunk walks' bounds at their tensor-core passes (TF32 "
+        f"{TF32_FLOP_S / 1e12:.0f} TFLOP/s, HBM {HBM_BYTES_S / 1e12:.2f} TB/s)")
+    tensor_core_bounds(results, built)
     log(f"kernel phase {time.perf_counter() - t0:.1f} s")
 
     # 3-4. the main path with the quantize-cold tier off, then on, then off
@@ -897,11 +984,11 @@ def main() -> int:
                             "src/repro/kernels/wna16_gemm.py:81"),
              "paged_decode": (csrc + "paged_attention.cu",
                               "src/repro/kernels/paged_attention.py:38"),
-             "paged_chunk": (csrc + "paged_attention.cu",
+             "paged_chunk": (csrc + "paged_chunk.cu",
                              "src/repro/kernels/paged_attention.py:250"),
              "paged_decode_q": (csrc + "paged_attention.cu",
                                 "src/repro/kernels/paged_attention.py:78"),
-             "paged_chunk_q": (csrc + "paged_attention.cu",
+             "paged_chunk_q": (csrc + "paged_chunk.cu",
                                "src/repro/kernels/paged_attention.py:315"),
              "paged_chunk_mla": (csrc + "paged_attention_mla.cu",
                                  "src/repro/kernels/paged_attention.py:320")}

@@ -1,0 +1,280 @@
+#!/usr/bin/env python3
+"""The paged-attention kernels of this checkout against another's on one
+card, and the build report of this checkout's attention kernels.
+
+    python3 kernel_ab.py [--parent DIR] [--out PATH]
+
+Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
+and ``cuobjdump`` (``CUDA_HOME`` or ``/usr/local/cuda``). ``DIR`` is the
+root of another checkout of the repository (for example an unpacked
+``git archive`` of an earlier commit).
+
+1. report: compiles ``csrc/paged_chunk.cu``, ``paged_attention_mla.cu``
+   and ``paged_attention.cu`` to sm_90a cubins with ``-Xptxas -v`` and
+   prints, for each kernel, its registers, its spill stores and loads and
+   its count of tensor-core instructions (HMMA / HGMMA) in
+   ``cuobjdump -sass``;
+2. cases: chip_smoke.py's kernel cases of the decode walk (K2, K2-q), the
+   chunk walk (K3, K3-q) and its latent mode (K3-mla), each held against
+   its plain version and timed as chip_smoke.py times it (CUDA-event
+   medians, L2 flushed), in one child process per run; the table compares
+   the kernel's times only. With ``--parent`` the runs go parent, this,
+   this, parent, each child importing the port from its own checkout; a
+   case a checkout refuses (the parent's decode walk at G > 8) is
+   recorded as refused.
+
+Prints the card's name and power limit, the report and a table of kernel
+ms per run, and writes all of it to ``--out`` (JSON). Exits non-zero when
+there is no CUDA device, a build fails or a case disagrees with its plain
+version.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+REPORT_SOURCES = ("paged_chunk", "paged_attention_mla", "paged_attention")
+# the chunk instantiations of the main path: K3 / K3-q (bf16 q, float32
+# pool) and K3-mla (float32 q and pool)
+MIX_KERNELS = ("paged_chunk_kernel<bf16, float, 128, 128, 0>",
+               "paged_chunk_kernel<bf16, float, 128, 128, 1>",
+               "paged_chunk_kernel<float, float, 576, 512, 0>")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _cuda_bin(tool: str) -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / tool
+    return str(cand) if cand.exists() else (shutil.which(tool) or tool)
+
+
+def _start_build(tree: Path) -> subprocess.Popen:
+    """Build a checkout's kernels in a child (its own build directory)."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from repro_torch.kernels import build; print(build.build_all())")
+    return subprocess.Popen([sys.executable, "-c", code, str(tree / "src")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _short(name: str) -> str:
+    """A kernel's demangled name cut to its template arguments."""
+    name = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", name)
+    name = name.replace("__nv_bfloat16", "bf16").replace("__half", "f16")
+    name = re.sub(r"\((int|bool|unsigned int)\)", "", name)
+    return re.sub(r"\([^()]*\)$", "", name).replace("void ", "").strip()
+
+
+def report(tmp: Path) -> list:
+    """Registers, spills and tensor-core instructions of every kernel of
+    ``REPORT_SOURCES`` (compiled with the build's flags to cubins)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    procs = {}
+    for name in REPORT_SOURCES:
+        cubin = tmp / f"{name}.cubin"
+        cmd = [build.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+               str(cubin), str(build.CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       cubin)
+    rows = []
+    filt = _cuda_bin("cu++filt")
+    for name, (proc, cubin) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -cubin {name}.cu failed:\n{out}")
+        info, cur = {}, None
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = m.group(1)
+                info[cur] = {"regs": None, "spill_stores": None,
+                             "spill_loads": None}
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and cur:
+                info[cur]["spill_stores"] = int(m.group(1))
+                info[cur]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                info[cur]["regs"] = int(m.group(1))
+        sass = subprocess.run([_cuda_bin("cuobjdump"), "-sass", str(cubin)],
+                              capture_output=True, text=True, check=True
+                              ).stdout
+        mma, ops, cur = {}, {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = m.group(1)
+                mma[cur] = 0
+                ops[cur] = collections.Counter()
+                continue
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                          line)
+            if cur and m:
+                ops[cur][m.group(1)] += 1
+                if m.group(1) in ("HMMA", "HGMMA"):
+                    mma[cur] += 1
+        names = list(info)
+        demangled = subprocess.run([filt], input="\n".join(names),
+                                   capture_output=True, text=True
+                                   ).stdout.splitlines()
+        if len(demangled) != len(names):
+            demangled = names
+        for mangled, pretty in zip(names, demangled):
+            top = ops.get(mangled, collections.Counter()).most_common(12)
+            rows.append(dict(source=f"{name}.cu", kernel=_short(pretty),
+                             tensor_core_instructions=mma.get(mangled, 0),
+                             sass_instructions=sum(
+                                 ops.get(mangled, {}).values()),
+                             top_opcodes=top, **info[mangled]))
+    return rows
+
+
+def child(tree: Path, out: Path) -> int:
+    """Check and time every kernel case with the port of ``tree``."""
+    sys.path.insert(0, str(tree / "src"))
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()
+    timer = cs.Timer(torch)
+    results, refused = [], []
+
+    def each(fn, cases, **kw):
+        for case in cases:
+            try:
+                fn(torch, timer, results, [case], **kw)
+            except ValueError as e:      # a case this checkout refuses
+                refused.append(dict(case=repr(case), bits=kw.get("bits"),
+                                    error=str(e)))
+                log(f"  refused {case}: {e}")
+
+    each(cs.decode_cases, cs.DECODE_CASES)
+    each(cs.chunk_cases, cs.CHUNK_CASES)
+    for bits in (8, 4):
+        each(cs.decode_cases, cs.DECODE_Q_CASES, bits=bits)
+        each(cs.chunk_cases, cs.CHUNK_Q_CASES, bits=bits)
+    cs.mla_chunk_cases(torch, timer, results)
+    out.write_text(json.dumps(dict(tree=str(tree), results=results,
+                                   refused=refused)))
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None)
+    ap.add_argument("--out", type=Path,
+                    default=ROOT / "bench_out" / "kernel_ab.json")
+    ap.add_argument("--child", type=Path, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--child-out", type=Path, default=None,
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child is not None:
+        return child(args.child.resolve(), args.child_out)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    card = smi[0].strip()
+    log(card)
+    trees = {"this": ROOT}
+    if args.parent is not None:
+        trees["parent"] = args.parent.resolve()
+    t0 = time.perf_counter()
+    builds = {k: _start_build(t) for k, t in trees.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = report(Path(tmp))
+    for k, proc in builds.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"build of {k} failed:\n{out}")
+        log(f"build {k}: {out.strip().splitlines()[-1]}")
+    log(f"builds and report {time.perf_counter() - t0:.1f} s")
+    log("kernel | regs | spill stores / loads (bytes) | HMMA/HGMMA | SASS "
+        "instructions (static)")
+    for r in rows:
+        log(f"  {r['source']} {r['kernel']} | {r['regs']} | "
+            f"{r['spill_stores']} / {r['spill_loads']} | "
+            f"{r['tensor_core_instructions']} | {r['sass_instructions']}")
+    for r in rows:     # the instruction mix of the main path's chunk walks
+        if r["kernel"] in MIX_KERNELS:
+            log(f"  {r['kernel']} top opcodes: {r['top_opcodes']}")
+
+    order = ["parent", "this", "this", "parent"] if "parent" in trees \
+        else ["this"]
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, k in enumerate(order):
+            out = Path(tmp) / f"run{i}.json"
+            t1 = time.perf_counter()
+            rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                 "--child", str(trees[k]), "--child-out",
+                                 str(out)]).returncode
+            if rc != 0:
+                raise RuntimeError(f"run {i} ({k}) failed with rc {rc}")
+            run = json.loads(out.read_text())
+            run.update(tree=k, seconds=time.perf_counter() - t1)
+            runs.append(run)
+            log(f"run {i} ({k}) {run['seconds']:.1f} s")
+            if k == "this" and run["refused"]:
+                raise AssertionError(f"this checkout refused {run['refused']}")
+
+    cases = []
+    for r in runs[0 if order[0] == "this" else 1]["results"]:
+        cases.append((r["kernel"], r["case"]))
+    table = []
+    log("kernel case | ms per run (" + ", ".join(order) + ") | this / parent")
+    for kernel, case in cases:
+        per_run = []
+        for run in runs:
+            hit = [x for x in run["results"]
+                   if x["kernel"] == kernel and x["case"] == case]
+            per_run.append(hit[0]["ms"] if hit else None)
+        mine = [m for m, k in zip(per_run, order) if k == "this"]
+        theirs = [m for m, k in zip(per_run, order)
+                  if k == "parent" and m is not None]
+        ratio = (statistics.median(mine) / statistics.median(theirs)
+                 if theirs else None)
+        table.append(dict(kernel=kernel, case=case, ms=per_run,
+                          this_over_parent=ratio))
+        log(f"  {kernel} {case} | "
+            + ", ".join("refused" if m is None else f"{m:.4f}"
+                        for m in per_run)
+            + " | " + ("-" if ratio is None else f"{ratio:.3f}"))
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(dict(card=card, order=order, report=rows,
+                                        table=table, runs=runs), indent=1))
+    log(f"wrote {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
-"""Paged attention on the card: the wrappers of ``csrc/paged_attention.cu``.
+"""Paged attention on the card: the wrappers of ``csrc/paged_attention.cu``
+(``paged_decode``, the decode block walk K2) and ``csrc/paged_chunk.cu``
+(``paged_chunk``, the chunk-prefill block walk K3 on tensor cores).
 
-``paged_decode`` is the decode block walk (K2) and ``paged_chunk`` the
-chunk-prefill block walk (K3), each in both modes: ``fused_new=True`` takes
+Each works in both modes: ``fused_new=True`` takes
 the new token(s) as operands and reads only pool positions before them;
 ``fused_new=False`` reads everything from the pool. Both take only CUDA
 tensors; their plain torch versions are ``paged_decode_ref`` and
@@ -20,6 +21,10 @@ calls that launched its kernel: ``launches`` those without a bundle,
 scores span its full width and values are its first ``dv`` lanes. Its
 plain version is ``paged_chunk_ref(..., dv=dv)`` with the latent pool as
 both pools; it counts its launches in ``paged_chunk_mla.launches``.
+
+The chunk wrappers plan each launch with :mod:`repro_torch.kernels.plan`,
+which says which widths and dtypes are built, so that what the kernels lack
+is refused before the device check; the C side sizes its own launch.
 """
 from __future__ import annotations
 
@@ -27,42 +32,52 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, plan
 
-_SMEM_LIMIT = 48 * 1024
-_MAX_DECODE_G = 8             # csrc kMaxG
-_HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-# (key width, value width) pairs and pool dtypes that csrc/
-# paged_attention_mla.cu instantiates: DeepSeek-V3's latent (512 + 64, 512)
-_LATENT_DIMS = ((576, 512),)
-_LATENT_POOL_DTYPES = (torch.float32, torch.bfloat16)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of each C entry point (else ctypes passes pointers as int32)
+_ARGTYPES = {
+    "morph_paged_decode": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _F, _I, _F, _I,
+                           _P, _P, _P, _P, _P, _P, _P],
+    "morph_paged_chunk": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I,
+                          _I, _I, _I, _I, _I, _F, _I, _F, _I,
+                          _P, _P, _P, _P, _P, _P, _P],
+    "morph_paged_chunk_plan": [_I, _I, _I, _I, _P],
+    "morph_paged_chunk_mla": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _F, _I, _F, _I, _P],
+    "morph_paged_chunk_mla_plan": [_I, _I, _I, _P],
+}
 
 
-def _lib():
-    lib = build.load("paged_attention")
-    if not lib.morph_paged_decode.argtypes:   # else pointers pass as int32
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.morph_paged_decode.argtypes = [p, i, p, p, i, p, p, p, p, p, i, i,
-                                           i, i, i, i, f, i, f, i,
-                                           p, p, p, p, p, p, p]
-        lib.morph_paged_decode.restype = ctypes.c_int
-        lib.morph_paged_chunk.argtypes = [p, i, p, p, i, p, p, p, i, p, i, i,
-                                          i, i, i, i, i, f, i, f, i,
-                                          p, p, p, p, p, p, p]
-        lib.morph_paged_chunk.restype = ctypes.c_int
+def _lib(name: str):
+    """The library of ``csrc/<name>.cu`` with its entry points typed."""
+    lib = build.load(name)
+    for fn_name, argtypes in _ARGTYPES.items():
+        if hasattr(lib, fn_name) and not getattr(lib, fn_name).argtypes:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
-def _lib_mla():
-    lib = build.load("paged_attention_mla")
-    fn = lib.morph_paged_chunk_mla
-    if not fn.argtypes:      # else pointers pass as int32
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, i, p, p, i, p, i, i, i, i, i, i, i, f, i, f, i,
-                       p]
-        fn.restype = ctypes.c_int
-    return lib
+def built_chunk_plan(q_dtype, kv_dtype, Dh: int, Dv: int, kvq: bool):
+    """The plan the built library reports for one chunk instantiation:
+    (dynamic shared bytes, key tile, mma passes of Q K^T, of P V, threads,
+    row tile), for holding :mod:`plan` against the sources on the card."""
+    out = (ctypes.c_int * 6)()
+    if Dv == Dh:
+        lib = _lib("paged_chunk")
+        rc = lib.morph_paged_chunk_plan(build.dtype_code(q_dtype),
+                                        build.dtype_code(kv_dtype), Dh,
+                                        int(kvq), out)
+    else:
+        lib = _lib("paged_attention_mla")
+        rc = lib.morph_paged_chunk_mla_plan(build.dtype_code(kv_dtype), Dh,
+                                            Dv, out)
+    build.check_rc(lib, rc, "chunk plan")
+    return tuple(out)
 
 
 def _check(cond: bool, what: str, msg: str) -> None:
@@ -87,8 +102,8 @@ def _check_common(what, q, k_pool, v_pool, tables, k_new, v_new, new_shape):
         _check(t.is_contiguous(), what, f"{name} must be contiguous")
     _, bs, KVH, Dh = k_pool.shape
     H = q.shape[-2]
-    _check(q.shape[-1] == Dh and Dh in _HEAD_DIMS, what,
-           f"head dim {q.shape[-1]} (pool {Dh}; takes {_HEAD_DIMS})")
+    _check(q.shape[-1] == Dh and Dh in plan.HEAD_DIMS, what,
+           f"head dim {q.shape[-1]} (pool {Dh}; takes {plan.HEAD_DIMS})")
     _check(H % KVH == 0, what, f"H={H} not a multiple of KVH={KVH}")
     if k_new is not None:
         _check(v_new is not None and tuple(k_new.shape) == new_shape
@@ -126,6 +141,18 @@ def _check_device(what, q):
            "kernels/ref.py serves CPU tensors)")
 
 
+def _check_aligned(what, **tensors):
+    """The chunk walk copies rows 16 bytes at a time (cp.async)."""
+    for name, t in tensors.items():
+        if t is not None:
+            _check(t.data_ptr() % 16 == 0, what,
+                   f"{name} must start on a 16-byte boundary")
+
+
+def _name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
 def paged_decode(q, k_new, v_new, k_pool, v_pool, tables, lens, *,
                  scale: float, window: int = 0, softcap: float = 0.0,
                  fused_new: bool = True, kv_quant=None) -> torch.Tensor:
@@ -144,7 +171,6 @@ def paged_decode(q, k_new, v_new, k_pool, v_pool, tables, lens, *,
         k_new = v_new = None
     bs, KVH, Dh, H = _check_common(what, q, k_pool, v_pool, tables, k_new,
                                    v_new, (B,) + tuple(k_pool.shape[2:]))
-    _check(H // KVH <= _MAX_DECODE_G, what, f"G={H // KVH} > {_MAX_DECODE_G}")
     _check(tables.shape[0] == B, what, "tables must have B rows")
     _check(lens.dtype == torch.int32 and tuple(lens.shape) == (B,)
            and lens.device == q.device and lens.is_contiguous(), what,
@@ -154,7 +180,7 @@ def paged_decode(q, k_new, v_new, k_pool, v_pool, tables, lens, *,
     out = torch.empty_like(q)
     if B == 0:
         return out
-    lib = _lib()
+    lib = _lib("paged_attention")
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(q.device):
         rc = lib.morph_paged_decode(
@@ -194,18 +220,22 @@ def paged_chunk(q, k_new, v_new, k_pool, v_pool, tables, pos0: int, *,
         what, q, k_pool, v_pool, tables, k_new, v_new,
         (B, C, k_pool.shape[2], k_pool.shape[3]))
     _check(tables.shape[0] == B, what, "tables must have B rows")
-    _check(2 * bs * Dh * 4 <= _SMEM_LIMIT, what,
-           f"block {bs} x head dim {Dh} exceeds the staging buffer")
+    plan.chunk_plan(B=B, C=C, H=H, KVH=KVH, Dh=Dh, Dv=Dh,
+                    q_dtype=_name(q.dtype), kv_dtype=_name(k_pool.dtype),
+                    kvq=kv_quant is not None)
     pos0 = int(pos0)
     _check(pos0 >= 0, what, "pos0 must be >= 0")
     _check(pos0 + (0 if fused_new else C) <= tables.shape[1] * bs, what,
            "tables do not cover the positions read")
     quant = _check_kv_quant(what, kv_quant, k_pool)
     _check_device(what, q)
+    qk, qv = kv_quant[:2] if kv_quant is not None else (None, None)
+    _check_aligned(what, q=q, k_pool=k_pool, v_pool=v_pool, k_new=k_new,
+                   v_new=v_new, qk=qk, qv=qv)
     out = torch.empty_like(q)
     if B == 0 or C == 0:
         return out
-    lib = _lib()
+    lib = _lib("paged_chunk")
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(q.device):
         rc = lib.morph_paged_chunk(
@@ -240,11 +270,10 @@ def paged_chunk_mla(q, latent_new, pool, tables, pos0: int, *, dv: int,
     B, C, H, Dh = q.shape
     _check(pool.ndim == 4 and pool.shape[2] == 1, what,
            "the latent pool must be (cap, bs, 1, Dh)")
-    _check((Dh, dv) in _LATENT_DIMS and pool.shape[3] == Dh, what,
-           f"latent width (Dh {Dh}, pool {pool.shape[3]}, dv {dv}); the "
-           f"kernel is built for {_LATENT_DIMS}")
-    _check(pool.dtype in _LATENT_POOL_DTYPES, what,
-           f"pool dtype {pool.dtype} (takes {_LATENT_POOL_DTYPES})")
+    _check(pool.shape[3] == Dh, what,
+           f"latent width: q {Dh}, pool {pool.shape[3]}")
+    plan.chunk_plan(B=B, C=C, H=H, KVH=1, Dh=Dh, Dv=dv, q_dtype="float32",
+                    kv_dtype=_name(pool.dtype), kvq=False)
     _check(tables.dtype == torch.int32 and tables.ndim == 2
            and tables.shape[0] == B, what, "tables must be int32 (B, nb)")
     if fused_new:
@@ -261,17 +290,16 @@ def paged_chunk_mla(q, latent_new, pool, tables, pos0: int, *, dv: int,
                    f"{name} is on {t.device}, q on {q.device}")
             _check(t.is_contiguous(), what, f"{name} must be contiguous")
     bs = pool.shape[1]
-    _check(bs * Dh * 4 <= _SMEM_LIMIT, what,
-           f"block {bs} x latent width {Dh} exceeds the staging buffer")
     pos0 = int(pos0)
     _check(pos0 >= 0, what, "pos0 must be >= 0")
     _check(pos0 + (0 if fused_new else C) <= tables.shape[1] * bs, what,
            "tables do not cover the positions read")
     _check_device(what, q)
+    _check_aligned(what, q=q, pool=pool, latent_new=latent_new)
     out = torch.empty((B, C, H, dv), dtype=q.dtype, device=q.device)
     if B == 0 or C == 0:
         return out
-    lib = _lib_mla()
+    lib = _lib("paged_attention_mla")
     with torch.cuda.device(q.device):
         rc = lib.morph_paged_chunk_mla(
             q.data_ptr(), pool.data_ptr(), build.dtype_code(pool.dtype),

@@ -16,7 +16,7 @@ from torch_parity import to_np
 
 from repro.kernels import paged_attention as jpa
 from repro.kernels import ref as jref
-from repro_torch.kernels import AttentionSpec, ops, ref
+from repro_torch.kernels import AttentionSpec, ops, plan, ref
 from repro_torch.kernels.paged_attention import paged_chunk, paged_decode
 from repro_torch.kernels.wna16_gemm import wna16_gemm
 
@@ -54,13 +54,14 @@ def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
-@pytest.mark.parametrize("H,KVH", [(4, 4), (4, 2)])
+@pytest.mark.parametrize("H,KVH", [(4, 4), (4, 2), (12, 2), (12, 1)])
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (7, 0.0), (0, 25.0),
                                             (11, 25.0)])
 @pytest.mark.parametrize("fused", [True, False])
 def test_plain_decode_matches_jax(H, KVH, window, softcap, fused):
     """Plain paged decode (both modes) against the JAX gather oracles,
-    across G in {1, 2}, window, softcap and ragged context lengths. The
+    across G in {1, 2, 6, 12} (6 and 12 take two of the decode kernel's
+    row groups of 8), window, softcap and ragged context lengths. The
     fused mode's pool read stops before the new token's slot, so the JAX
     xla lane (which reads it from the pool) must agree once it is there."""
     q, kn, vn, kp, vp, tables, lens = _decode_case(
@@ -122,13 +123,15 @@ def _chunk_case(seed, C, H, KVH, Dh, bs, pos0):
 
 
 @pytest.mark.parametrize("C,H,KVH,pos0", [(8, 4, 4, 16), (16, 4, 2, 13),
-                                          (16, 4, 4, 0)])
+                                          (16, 4, 4, 0), (8, 12, 2, 5),
+                                          (8, 12, 1, 5)])
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (9, 0.0), (9, 25.0)])
 @pytest.mark.parametrize("fused", [True, False])
 def test_plain_chunk_matches_jax(C, H, KVH, pos0, window, softcap, fused):
     """Plain chunk prefill (both modes) against the JAX gather oracle
-    ``paged_chunk_gather_attention``, across G in {1, 2}, window, softcap
-    and (un)aligned offsets. The fused mode reads the pool only below pos0,
+    ``paged_chunk_gather_attention``, across G in {1, 2, 6, 12} (at 6 and
+    12 a row tile of the chunk kernel spans tokens at a fractional
+    boundary), window, softcap and (un)aligned offsets. The fused mode reads the pool only below pos0,
     so scrubbing the chunk's own slots must not change its result."""
     q, kn, vn, kp, vp, tables = _chunk_case(C * H + pos0 + window + fused,
                                             C, H, KVH, 32, 8, pos0)
@@ -202,6 +205,115 @@ def test_wrappers_reject_bad_inputs():
                     fused_new=False)
 
 
+def test_decode_wrapper_takes_any_g():
+    """The decode wrapper no longer refuses G > 8: at G = 12 (Command R+'s
+    96 / 8 layout, here 12 / 1) and G = 6 a CPU tensor gets as far as the
+    device check, with and without a quantized-KV bundle."""
+    for H, KVH in ((12, 1), (12, 2)):
+        q = torch.zeros((2, H, 32))
+        kp = torch.zeros((5, 8, KVH, 32))
+        tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+        lens = torch.full((2,), 9, dtype=torch.int32)
+        kvq = (torch.zeros(kp.shape, dtype=torch.int8),) * 2 + (
+            torch.zeros(5),) * 4
+        for bundle in (None, kvq):
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                paged_decode(q, None, None, kp, kp, tables, lens, scale=1.0,
+                             fused_new=False, kv_quant=bundle)
+            with pytest.raises(ValueError, match="CUDA tensor"):
+                paged_chunk(q[:, None], None, None, kp, kp, tables, 3,
+                            scale=1.0, fused_new=False, kv_quant=bundle)
+
+
+# the planned bytes of the main path's instantiations (held against the
+# built libraries on the card by chip_smoke.py's plan check)
+PLANNED_SMEM = {(128, 128, "float32", False): (64, 168_960),
+                (128, 128, "float32", True): (64, 207_872),
+                (256, 256, "float32", True): (16, 151_040),
+                (576, 512, "float32", False): (16, 230_912),
+                (576, 512, "bfloat16", False): (16, 194_048)}
+
+
+@pytest.mark.parametrize("Dh,Dv", [(d, d) for d in plan.HEAD_DIMS]
+                         + list(plan.LATENT_DIMS))
+def test_chunk_plans_fit_the_card(Dh, Dv):
+    """Every (q dtype, pool dtype, quantized lane) the chunk wrappers admit
+    at this width has a plan that fits the 227 KB a block may opt into:
+    64-row tiles over the C * G rows of each (kv head, sequence), a key
+    tile of 16-64 that both lanes of a width share (so a zeroed sidecar
+    reproduces the plain lane), one mma a product for bf16 q and for
+    float32 and float16 q one more for each float32 operand, and 8 warps
+    (two to each 16-row slice)."""
+    latent = Dv != Dh
+    H, KVH = (128, 1) if latent else (96, 8)
+    for qd in ("float32",) if latent else plan.DTYPES:
+        for kd in plan.LATENT_POOL_DTYPES if latent else plan.DTYPES:
+            tiles = set()
+            for kvq in (False,) if latent else (False, True):
+                p = plan.chunk_plan(B=3, C=100, H=H, KVH=KVH, Dh=Dh, Dv=Dv,
+                                    q_dtype=qd, kv_dtype=kd, kvq=kvq)
+                assert p.smem <= plan.SMEM_LIMIT == 232_448
+                assert p.row_tile == 64
+                assert p.grid == (-(-100 * (H // KVH) // 64), KVH, 3)
+                kv = int(kd == "float32" or kvq)
+                assert (p.score_passes, p.value_passes) == (
+                    (1, 1) if qd == "bfloat16"
+                    else (1 + (qd == "float32") + kv, 2 + kv))
+                assert p.threads == 256
+                assert p.smem == plan.chunk_smem(Dh, Dv, p.key_tile, kd, kvq)
+                want = PLANNED_SMEM.get((Dh, Dv, kd, kvq))
+                if want is not None:
+                    assert (p.key_tile, p.smem) == want
+                tiles.add(p.key_tile)
+            assert len(tiles) == 1 and tiles <= {16, 32, 64}
+            bn = tiles.pop()
+            if bn < 64:      # the next larger tile would not fit
+                assert plan.chunk_smem(Dh, Dv, 2 * bn, kd,
+                                       not latent) > plan.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,kvq,Dv,want", [
+    ("bfloat16", "float32", False, 128, (1, 1)),   # K3 on the main path
+    ("bfloat16", "float32", True, 128, (1, 1)),    # K3-q
+    ("float32", "float32", False, 512, (3, 3)),    # K3-mla, float32 pool
+    ("float32", "bfloat16", False, 512, (2, 2)),   # K3-mla, bf16 pool
+    ("float16", "float32", False, 128, (2, 3)),
+    ("float16", "float16", True, 128, (2, 3)),
+])
+def test_chunk_passes_count_split_operands(q_dtype, kv_dtype, kvq, Dv, want):
+    """The tensor-core passes of Q K^T and P V: big.big plus one mma for
+    each operand split in two (3xTF32) — a float32 q, P and a float32 or
+    dequantized pool where the output is float32 or float16; a 16-bit
+    operand is exact and never split."""
+    Dh = 576 if Dv == 512 else Dv
+    p = plan.chunk_plan(B=1, C=16, H=128 if Dv == 512 else 8,
+                        KVH=1 if Dv == 512 else 2, Dh=Dh, Dv=Dv,
+                        q_dtype=q_dtype, kv_dtype=kv_dtype, kvq=kvq)
+    assert (p.score_passes, p.value_passes) == want
+
+
+@pytest.mark.parametrize("kw,msg", [
+    (dict(Dh=96, Dv=96), "head dim"),
+    (dict(q_dtype="float64"), "each takes"),
+    (dict(kv_dtype="int8"), "each takes"),
+    (dict(H=12, KVH=5), "multiple"),
+    (dict(Dh=576, Dv=256, H=128, KVH=1, q_dtype="float32"), "latent width"),
+    (dict(Dh=576, Dv=512, H=128, KVH=1), "float32 q"),
+    (dict(Dh=576, Dv=512, H=128, KVH=1, q_dtype="float32",
+          kv_dtype="float16"), "pool dtype"),
+    (dict(Dh=576, Dv=512, H=128, KVH=1, q_dtype="float32", kvq=True),
+     "no sidecar"),
+])
+def test_chunk_plan_refuses_what_is_not_built(kw, msg):
+    """A width, dtype or lane the chunk kernels are not instantiated for
+    has no plan: the planner raises before any device check."""
+    args = dict(B=1, C=16, H=8, KVH=2, Dh=128, Dv=128, q_dtype="bfloat16",
+                kv_dtype="float32", kvq=False)
+    args.update(kw)
+    with pytest.raises(ValueError, match=msg):
+        plan.chunk_plan(**args)
+
+
 def test_routes_pick_by_device():
     """A CPU tensor takes the plain version; a device with no kernel route
     raises instead of being moved anywhere."""
@@ -241,14 +353,15 @@ def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernels have no CPU mode")
     dev = "cuda"
-    q, kn, vn, kp, vp, tables, lens = [
-        t.to(dev) for t in _t(*_decode_case(5, 3, 4, 2, 32, 8, 4))]
-    for fused in (True, False):
-        kw = dict(scale=0.2, window=7, softcap=20.0, fused_new=fused)
-        a = paged_decode(q, kn if fused else None, vn if fused else None, kp,
-                         vp, tables, lens, **kw)
-        b = ref.paged_decode_ref(q, kn, vn, kp, vp, tables, lens, **kw)
-        torch.testing.assert_close(a, b, **TOL)
+    for H, KVH in ((4, 2), (12, 1)):     # G = 2, and 12 (two row groups)
+        q, kn, vn, kp, vp, tables, lens = [
+            t.to(dev) for t in _t(*_decode_case(5, 3, H, KVH, 32, 8, 4))]
+        for fused in (True, False):
+            kw = dict(scale=0.2, window=7, softcap=20.0, fused_new=fused)
+            a = paged_decode(q, kn if fused else None, vn if fused else None,
+                             kp, vp, tables, lens, **kw)
+            b = ref.paged_decode_ref(q, kn, vn, kp, vp, tables, lens, **kw)
+            torch.testing.assert_close(a, b, **TOL)
     q, kn, vn, kp, vp, tables = [
         t.to(dev) for t in _t(*_chunk_case(6, 16, 4, 2, 32, 8, 13))]
     for fused in (True, False):
