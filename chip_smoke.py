@@ -13,7 +13,10 @@ raises on failure:
    kernels' build time;
 2. kernels: the launch planner (``kernels/plan.py``) against every built
    chunk instantiation, then every hand-written kernel (wNa16 GEMM at
-   both models' matmul shapes, paged decode at G = 1, 4, 6 and 12, chunk
+   both models' matmul shapes, its main case at one M of each
+   ``launches_by_m`` bucket, and held at odd M, with inv_act and a bias,
+   float32 and float16 x and groups of 64 and 32; its bound at the mma
+   passes of its launch plan; paged decode at G = 1, 4, 6 and 12, chunk
    prefill at G = 1, 4, 6, 7 and 12 and head widths 64, 128 and 256, and
    the decode and chunk walks' quantized-KV lane over pools quantized by
    ``PagedKVPool.quantize_blocks``, int8 and int4) against its plain
@@ -24,6 +27,8 @@ raises on failure:
    the float32 CUDA-core bound of earlier runs logged beside it); a
    zeroed quantized-KV
    sidecar must give the no-quant kernel's output exactly;
+   each engine phase below logs K1's launches by M bucket and an estimate
+   of its K1 device time from these timings;
 3. engine: the quickstart path — LIS profile, int4 swap plan, the
    token-budgeted ``MorphServeEngine`` serving a bursty trace with real
    compute — on Llama-2-7B at full width (d 4096, 32 heads, d_ff 11008,
@@ -144,62 +149,142 @@ def check_close(name, got, want):
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-# the (K, N) of every matmul of a swapped layer, each with the weight
-# widths and the M the main path gives it (decode 1 / 8 slots, chunks and
+# the (K, N) of every matmul of a swapped layer, with the weight width, the
+# M at which it is held to its plain version (decode 1 / 8 slots, chunks and
 # batched prefills up to 256 rows) and the M at which it is timed.
-# Llama-2-7B: wq/wk/wv/wo, MLP up/gate, down; int4 and int8.
-# DeepSeek-V3's dense MLA layers (the swap plan's int4): w_dq, w_uq, w_dkv
-# (its last 64 columns are the rope key), w_ukv (whole-prompt prefill's
-# latent expansion), wo, MLP up/gate, down.
-WNA16_CASES = ([(K, N, (4, 8), (1, 8, 256)) for K, N in
-                ((4096, 4096), (4096, 11008), (11008, 4096))]
-               + [(K, N, (4,), (8,)) for K, N in
-                  ((7168, 1536), (1536, 24576), (7168, 576), (512, 32768),
-                   (16384, 7168), (7168, 18432), (18432, 7168))])
+# Llama-2-7B: wq/wk/wv/wo, MLP up/gate, down; int4 and int8. DeepSeek-V3's
+# dense MLA layers (the swap plan's int4): w_dq, w_uq, w_dkv (its last 64
+# columns are the rope key), w_ukv (whole-prompt prefill's latent
+# expansion), wo, MLP up/gate, down. The main case, (4096, 11008) int4, is
+# timed at one M of each ``launches_by_m`` bucket (``K1_BUCKET_M``).
+LLAMA_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
+DEEPSEEK_KN = ((7168, 1536), (1536, 24576), (7168, 576), (512, 32768),
+               (16384, 7168), (7168, 18432), (18432, 7168))
+K1_BUCKET_M = {"1": 1, "2-8": 8, "9-16": 16, "17-64": 64, "65-256": 256,
+               "257-512": 512, ">512": 1024}
+K1_MAIN = (4096, 11008, 4)
+WNA16_CASES = ([(K, N, bits, (1, 8, 256), (8, 256) if bits == 8 else (1, 8, 256))
+                for K, N in LLAMA_KN for bits in (4, 8)
+                if (K, N, bits) != K1_MAIN]
+               + [(*K1_MAIN, tuple(K1_BUCKET_M.values()),
+                   tuple(K1_BUCKET_M.values()))]
+               + [(K, N, 4, (1, 8, 256), (8, 256)) for K, N in DEEPSEEK_KN])
 
 
-def wna16_cases(torch, timer, results):
-    """K1 against its plain version, elementwise, at M 1 / 8 / 256 for
-    every (K, N) of ``WNA16_CASES``; timed at that case's timed M."""
+def wna16_cases(torch, timer, results, cases=WNA16_CASES):
+    """K1 against its plain version, elementwise, at each case's held M
+    (bf16 x, group 128, no inv_act or bias: the main path's calls); timed at
+    its timed M beside ``torch.matmul`` on the pre-dequantized bf16 weight.
+    Each timed row carries the work its bound is computed from
+    (``wna16_bounds``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.wna16_gemm import wna16_gemm
     from repro_torch.quant import quantize_tensor
     gen = torch.Generator(device="cuda").manual_seed(11)
-    for K, N, widths, timed in WNA16_CASES:
+    for K, N, bits, held, timed in cases:
         w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
-        for bits in widths:
-            qt = quantize_tensor(w.to(torch.bfloat16), bits=bits, group=128)
-            wd = qt.dequantize(torch.bfloat16)
-            for M in (1, 8, 256):
-                x = torch.randn((M, K), generator=gen, device="cuda").to(
-                    torch.bfloat16)
-                args = (x, qt.packed, qt.scales, qt.zeros)
-                kw = dict(bits=bits, group=qt.group)
-                want = ref.wna16_ref(*args, **kw)
-                got = wna16_gemm(*args, **kw)
-                torch.cuda.synchronize()
-                name = f"wna16 M={M} K={K} N={N} int{bits}"
-                err = check_close(name, got, want)
-                row = dict(kernel="wna16_gemm", case=name, err=err)
-                results.append(row)
-                if M not in timed:
-                    log(f"  {name}: err {err:.2e}")
-                    continue
-                t_k = timer.ms(lambda: wna16_gemm(*args, **kw))
-                t_p = timer.ms(lambda: ref.wna16_ref(*args, **kw))
-                t_l = timer.ms(lambda: torch.matmul(x, wd))
-                nbytes = (x.numel() * 2 + qt.packed.numel()
-                          + 2 * qt.scales.numel() * 4 + M * N * 2)
-                flops = 2 * M * K * N
-                bound = max(nbytes / HBM_BYTES_S, flops / BF16_FLOP_S) * 1e3
-                by = "bytes" if nbytes / HBM_BYTES_S >= flops / BF16_FLOP_S \
-                    else "operations"
-                row.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                           bound_ms=bound, bound_by=by)
-                log(f"  {name}: err {err:.2e} kernel {t_k:.4f} ms plain "
-                    f"{t_p:.4f} ms matmul(bf16 W) {t_l:.4f} ms bound "
-                    f"{bound:.4f} ms ({by})")
+        qt = quantize_tensor(w.to(torch.bfloat16), bits=bits, group=128)
+        wd = qt.dequantize(torch.bfloat16)
+        for M in held:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            args = (x, qt.packed, qt.scales, qt.zeros)
+            kw = dict(bits=bits, group=qt.group)
+            want = ref.wna16_ref(*args, **kw)
+            got = wna16_gemm(*args, **kw)
+            torch.cuda.synchronize()
+            name = f"wna16 M={M} K={K} N={N} int{bits}"
+            err = check_close(name, got, want)
+            row = dict(kernel="wna16_gemm", case=name, err=err)
+            results.append(row)
+            if M not in timed:
+                log(f"  {name}: err {err:.2e}")
+                continue
+            t_k = timer.ms(lambda: wna16_gemm(*args, **kw))
+            t_p = timer.ms(lambda: ref.wna16_ref(*args, **kw))
+            t_l = timer.ms(lambda: torch.matmul(x, wd))
+            nbytes = (x.numel() * 2 + qt.packed.numel()
+                      + 2 * qt.scales.numel() * 4 + M * N * 2)
+            row.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                       k1_work=dict(M=M, K=K, N=N, bits=bits, group=qt.group,
+                                    nbytes=nbytes, flops=2 * M * K * N))
+            log(f"  {name}: err {err:.2e} kernel {t_k:.4f} ms plain "
+                f"{t_p:.4f} ms matmul(bf16 W) {t_l:.4f} ms")
         del w, qt, wd
+
+
+def wna16_more_cases(torch, results):
+    """K1 held, untimed, where the main path does not go: odd M (the 8- and
+    16-row decode tiles and the 64-row tile, ragged), AWQ inv_act with a
+    bias, float32 and float16 x (their split and fp16 passes), and groups
+    of 64 and 32."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wna16_gemm import wna16_gemm
+    from repro_torch.quant import quantize_tensor
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    # (K, N, bits, group, x dtype, inv_act + bias, Ms)
+    cases = ([(4096, 11008, 4, 128, bf, False, (3, 17, 100, 300, 1000))]
+             + [(4096, 11008, bits, 128, bf, True, (3, 17, 300))
+                for bits in (4, 8)]
+             + [(4096, 11008, bits, 128, f32, inv, (3, 100))
+                for bits in (4, 8) for inv in (False, True)]
+             + [(4096, 11008, bits, 128, f16, inv, (17, 300))
+                for bits in (4, 8) for inv in (False, True)]
+             + [(4096, 4096, bits, 64, bf, False, (8, 256)) for bits in (4, 8)]
+             + [(7168, 576, 4, 32, bf, True, (8, 100))])
+    for K, N, bits, group, dt, inv, Ms in cases:
+        w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+        act = (torch.rand((K,), generator=gen, device="cuda") + 0.5
+               if inv else None)
+        qt = quantize_tensor(w, bits=bits, group=group, act_scale=act)
+        bias = torch.randn((N,), generator=gen, device="cuda") if inv \
+            else None
+        errs = []
+        for M in Ms:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+            args = (x, qt.packed, qt.scales, qt.zeros, qt.inv_act, bias)
+            want = ref.wna16_ref(*args, bits=bits, group=group)
+            got = wna16_gemm(*args, bits=bits, group=group)
+            torch.cuda.synchronize()
+            name = (f"wna16 M={M} K={K} N={N} int{bits} group {group} "
+                    f"{str(dt).replace('torch.', '')}"
+                    + (" inv_act+bias" if inv else ""))
+            err = check_close(name, got, want)
+            errs.append(err)
+            results.append(dict(kernel="wna16_gemm", case=name, err=err))
+        log(f"  K={K} N={N} int{bits} group {group} "
+            f"{str(dt).replace('torch.', '')}"
+            + (" inv_act+bias" if inv else "")
+            + f" at M {Ms}: errs " + ", ".join(f"{e:.2e}" for e in errs))
+        del w, qt
+
+
+def wna16_bounds(results):
+    """Each timed K1 case's least time on this card, in ms, as its
+    ``bound_ms``: the larger of its bytes over the HBM rate and its FLOPs
+    times the mma passes its launch plan takes over the bf16 tensor-core
+    rate. Returns {M bucket: ms} of the main case, for the engine phases'
+    estimate of K1's device time."""
+    from repro_torch.kernels.wna16_gemm import m_bucket, plan
+    by_m = {}
+    for r in results:
+        w = r.get("k1_work")
+        if w is None:
+            continue
+        p = plan(w["M"], w["K"], w["N"], bits=w["bits"], group=w["group"],
+                 x_dtype="bfloat16", inv_act=False)
+        t_bytes = w["nbytes"] / HBM_BYTES_S
+        t_ops = w["flops"] * p.passes / BF16_FLOP_S
+        r["bound_ms"] = max(t_bytes, t_ops) * 1e3
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"  {r['case']}: bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+            f"{p.passes} pass, tile {p.bm} rows, {p.splits} splits), kernel "
+            f"{r['ms'] / r['bound_ms']:.1f}x it, matmul "
+            f"{r['library_ms'] / r['bound_ms']:.1f}x")
+        if (w["K"], w["N"], w["bits"]) == K1_MAIN:
+            by_m[m_bucket(w["M"])] = r["ms"]
+    return by_m
 
 
 def _pool_case(torch, gen, B, lens, KVH, Dh, bs, extra_blocks=0):
@@ -663,21 +748,24 @@ def build_model(torch, cfg):
     return cfg, params, prof.order
 
 
-def engine_phase(torch, model, counters, *, kv_blocks, kv_quant,
+def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms,
                  need=("wna16_gemm", "paged_decode", "paged_chunk")):
     """Serve the quickstart trace through ``MorphServeEngine`` with real
     compute under a budget of the weights plus ``kv_blocks`` float32 KV
     blocks, with the quantize-cold tier off or on. ``counters`` maps each
-    kernel's name to its (wrapper, counter attribute); the counts are set
-    to 0 just before the run and read just after. With the tier off, the
-    kernels in ``need`` must have launched, a layer must have swapped and a
-    prompt must have been chunked."""
+    kernel's name to its (wrapper, counter attribute); the counts, and K1's
+    launches by M bucket, are set to 0 just before the run and read just
+    after. ``k1_ms`` maps each M bucket to the kernel phase's time of the
+    main K1 case at that bucket's M, for an estimate of the run's K1 device
+    time. With the tier off, the kernels in ``need`` must have launched, a
+    layer must have swapped and a prompt must have been chunked."""
     from repro_torch.configs import ServingConfig
     from repro_torch.core import tree_bytes
     from repro_torch.engine import (EngineConfig, KVQuantConfig,
                                     MorphServeEngine, NVIDIA_H100_SXM,
                                     azure_like)
     from repro_torch.engine.kv_cache import kv_block_bytes
+    from repro_torch.kernels.wna16_gemm import wna16_gemm
 
     cfg, params, order = model
     wb = tree_bytes(params)
@@ -717,6 +805,7 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant,
                        gen_mean=24, prompt_max=512, gen_max=48)
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
+    wna16_gemm.launches_by_m.clear()
     gc.collect()      # engines of earlier phases no one holds (their wrapped
     #                   exec methods form reference cycles) leave the peak
     torch.cuda.reset_peak_memory_stats()
@@ -727,6 +816,7 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant,
     wall = time.perf_counter() - t0
     launches = {name: getattr(fn, attr)
                 for name, (fn, attr) in counters.items()}
+    k1_by_m = dict(wna16_gemm.launches_by_m)
     peak_alloc = torch.cuda.max_memory_allocated()
 
     hist = eng.monitor.history
@@ -764,7 +854,16 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant,
         f"{peak_alloc / 1e9:.3f} GB")
     log(f"engine wall time {wall:.2f} s for {tokens} generated tokens "
         f"(host clock, synchronized); launches {launches}")
+    k1_est = sum(n * k1_ms[b] for b, n in k1_by_m.items())
+    ordered = {b: k1_by_m[b] for b in K1_BUCKET_M if b in k1_by_m}
+    log(f"K1 launches by M {ordered}; "
+        f"estimated K1 device time {k1_est:.1f} ms (an estimate: the "
+        f"launches of each bucket x the kernel phase's (4096, 11008) int4 "
+        f"time at {K1_BUCKET_M}, whatever the launch's shape)")
     fails = []
+    if sum(k1_by_m.values()) != launches["wna16_gemm"]:
+        fails.append(f"K1 launches by M {k1_by_m} do not add up to "
+                     f"{launches['wna16_gemm']}")
     if report.n_finished != report.n_requests or report.n_requests == 0:
         fails.append("not every request was served")
     if kv_quant:
@@ -899,6 +998,12 @@ def main() -> int:
         f"|k-p| <= rtol*|p| + atol*max|p|, {TOL})")
     t0 = time.perf_counter()
     wna16_cases(torch, timer, results)
+    log("K1 at odd M, with inv_act and a bias, float32 and float16 x, "
+        "groups 64 and 32 (held, not timed)")
+    wna16_more_cases(torch, results)
+    log("K1's bounds at the mma passes of its launch plan (bf16 "
+        f"{BF16_FLOP_S / 1e12:.0f} TFLOP/s, HBM {HBM_BYTES_S / 1e12:.2f} TB/s)")
+    k1_ms = wna16_bounds(results)
     decode_cases(torch, timer, results)
     chunk_cases(torch, timer, results)
     log("kv_quant lane (pools quantized through PagedKVPool.quantize_blocks,"
@@ -929,16 +1034,17 @@ def main() -> int:
     log("engine phase, kv-quant tier off (quickstart budget: weights + 8 "
         "KV blocks)")
     launches = engine_phase(torch, model, counters, kv_blocks=8,
-                            kv_quant=False)[1]
+                            kv_quant=False, k1_ms=k1_ms)[1]
     log("engine phase, kv-quant tier on (weights + 16 KV blocks: the "
         "budget at which the quickstart trace engages the tier)")
     eng, q_launches = engine_phase(torch, model, counters, kv_blocks=16,
-                                   kv_quant=True)
+                                   kv_quant=True, k1_ms=k1_ms)
     launches.update({k: q_launches[k]
                      for k in ("paged_decode_q", "paged_chunk_q")})
     log("engine phase, kv-quant tier off at the tier-on budget (weights + "
         "16 KV blocks: the control that separates the tier's effect)")
-    engine_phase(torch, model, counters, kv_blocks=16, kv_quant=False)
+    engine_phase(torch, model, counters, kv_blocks=16, kv_quant=False,
+                 k1_ms=k1_ms)
     log(f"engine phases {time.perf_counter() - t0:.1f} s")
 
     # 5. step parity
@@ -958,7 +1064,7 @@ def main() -> int:
         "blocks; chunks through K3-mla)")
     mla_eng, mla_launches = engine_phase(
         torch, mla, counters, kv_blocks=MLA_KV_BLOCKS, kv_quant=False,
-        need=("wna16_gemm", "paged_chunk_mla"))
+        k1_ms=k1_ms, need=("wna16_gemm", "paged_chunk_mla"))
     launches["paged_chunk_mla"] = mla_launches["paged_chunk_mla"]
     log(f"MLA engine phase {time.perf_counter() - t0:.1f} s")
     log(f"MLA step parity (kernels vs plain, tolerance {LOGIT_TOL} x "

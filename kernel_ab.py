@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The paged-attention kernels of this checkout against another's on one
-card, and the build report of this checkout's attention kernels.
+"""The hand-written kernels of this checkout against another's on one card,
+and the build report of this checkout's kernels.
 
     python3 kernel_ab.py [--parent DIR] [--out PATH]
 
@@ -9,18 +9,18 @@ and ``cuobjdump`` (``CUDA_HOME`` or ``/usr/local/cuda``). ``DIR`` is the
 root of another checkout of the repository (for example an unpacked
 ``git archive`` of an earlier commit).
 
-1. report: compiles ``csrc/paged_chunk.cu``, ``paged_attention_mla.cu``
-   and ``paged_attention.cu`` to sm_90a cubins with ``-Xptxas -v`` and
-   prints, for each kernel, its registers, its spill stores and loads and
-   its count of tensor-core instructions (HMMA / HGMMA) in
-   ``cuobjdump -sass``;
-2. cases: chip_smoke.py's kernel cases of the decode walk (K2, K2-q), the
-   chunk walk (K3, K3-q) and its latent mode (K3-mla), each held against
-   its plain version and timed as chip_smoke.py times it (CUDA-event
-   medians, L2 flushed), in one child process per run; the table compares
-   the kernel's times only. With ``--parent`` the runs go parent, this,
-   this, parent, each child importing the port from its own checkout; a
-   case a checkout refuses (the parent's decode walk at G > 8) is
+1. report: compiles ``csrc/wna16_gemm.cu``, ``paged_chunk.cu``,
+   ``paged_attention_mla.cu`` and ``paged_attention.cu`` to sm_90a cubins
+   with ``-Xptxas -v`` and prints, for each kernel, its registers, its
+   spill stores and loads and its count of tensor-core instructions (HMMA /
+   HGMMA) in ``cuobjdump -sass``;
+2. cases: chip_smoke.py's kernel cases of the wNa16 GEMM (K1), the decode
+   walk (K2, K2-q), the chunk walk (K3, K3-q) and its latent mode
+   (K3-mla), each held against its plain version and timed as
+   chip_smoke.py times it (CUDA-event medians, L2 flushed), in one child
+   process per run; the table compares the kernel's times only. With
+   ``--parent`` the runs go parent, this, this, parent, each child
+   importing the port from its own checkout; a case a checkout refuses is
    recorded as refused.
 
 Prints the card's name and power limit, the report and a table of kernel
@@ -44,10 +44,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-REPORT_SOURCES = ("paged_chunk", "paged_attention_mla", "paged_attention")
-# the chunk instantiations of the main path: K3 / K3-q (bf16 q, float32
-# pool) and K3-mla (float32 q and pool)
-MIX_KERNELS = ("paged_chunk_kernel<bf16, float, 128, 128, 0>",
+REPORT_SOURCES = ("wna16_gemm", "paged_chunk", "paged_attention_mla",
+                  "paged_attention")
+# the instantiations of the main path: K1 at decode and prefill M (bf16 x,
+# int4), K3 / K3-q (bf16 q, float32 pool) and K3-mla (float32 q and pool)
+MIX_KERNELS = ("wna16_kernel<bf16, 4, 8, 8, 0>",
+               "wna16_kernel<bf16, 4, 64, 8, 0>",
+               "paged_chunk_kernel<bf16, float, 128, 128, 0>",
                "paged_chunk_kernel<bf16, float, 128, 128, 1>",
                "paged_chunk_kernel<float, float, 576, 512, 0>")
 
@@ -172,6 +175,7 @@ def child(tree: Path, out: Path) -> int:
                                     error=str(e)))
                 log(f"  refused {case}: {e}")
 
+    each(cs.wna16_cases, cs.WNA16_CASES)
     each(cs.decode_cases, cs.DECODE_CASES)
     each(cs.chunk_cases, cs.CHUNK_CASES)
     for bits in (8, 4):
@@ -224,7 +228,7 @@ def main() -> int:
         log(f"  {r['source']} {r['kernel']} | {r['regs']} | "
             f"{r['spill_stores']} / {r['spill_loads']} | "
             f"{r['tensor_core_instructions']} | {r['sass_instructions']}")
-    for r in rows:     # the instruction mix of the main path's chunk walks
+    for r in rows:     # the instruction mix of the main path's instantiations
         if r["kernel"] in MIX_KERNELS:
             log(f"  {r['kernel']} top opcodes: {r['top_opcodes']}")
 
@@ -249,7 +253,8 @@ def main() -> int:
 
     cases = []
     for r in runs[0 if order[0] == "this" else 1]["results"]:
-        cases.append((r["kernel"], r["case"]))
+        if "ms" in r:        # K1 holds some cases without timing them
+            cases.append((r["kernel"], r["case"]))
     table = []
     log("kernel case | ms per run (" + ", ".join(order) + ") | this / parent")
     for kernel, case in cases:

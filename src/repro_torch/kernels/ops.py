@@ -98,8 +98,11 @@ def wna16_matmul(x2: torch.Tensor, qt, *, bias=None,
         return ref.wna16_ref(x2, qt.packed, qt.scales, qt.zeros, inv, b,
                              bits=qt.bits, group=qt.group)
     from repro_torch.kernels.wna16_gemm import wna16_gemm
-    return wna16_gemm(x2.contiguous(), qt.packed, qt.scales, qt.zeros, inv,
-                      b, bits=qt.bits, group=qt.group)
+    x2 = x2.contiguous()
+    if x2.data_ptr() % 16:   # the kernel copies x in 16-byte chunks
+        x2 = x2.clone()
+    return wna16_gemm(x2, qt.packed, qt.scales, qt.zeros, inv, b,
+                      bits=qt.bits, group=qt.group)
 
 
 # ---------------------------------------------------------------------------

@@ -1,40 +1,170 @@
-"""wNa16 GEMM on the card: the wrapper of ``csrc/wna16_gemm.cu``.
+"""wNa16 GEMM on the card: the launch planner and the wrapper of
+``csrc/wna16_gemm.cu``.
 
-``wna16_gemm`` launches the hand-written CUDA kernel and takes only CUDA
-tensors; its plain torch version is :func:`repro_torch.kernels.ref.wna16_ref`
-and :mod:`repro_torch.kernels.ops` picks between the two by the tensor's
-device. ``wna16_gemm.launches`` counts the calls that launched the kernel.
+``wna16_gemm`` launches the hand-written tensor-core kernel and takes only
+CUDA tensors; its plain torch version is
+:func:`repro_torch.kernels.ref.wna16_ref` and :mod:`repro_torch.kernels.ops`
+picks between the two by the tensor's device. :func:`plan` is the one
+owner of a launch's plan (row tile, splits of K, mma passes, the
+shared-memory ring and its bytes): the C side executes what it is given, and
+the planner refuses what the kernel is not built for, on any device.
+``wna16_gemm.launches`` counts the calls that launched the kernel and
+``wna16_gemm.launches_by_m`` the same calls by :func:`m_bucket` of M.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
+from dataclasses import astuple, dataclass
 
 import torch
 
 from repro_torch.kernels import build
 
-_SMEM_LIMIT = 48 * 1024
-_BM = (1, 2, 4, 8, 16)
-_COLS_PER_CTA = 512            # 128 threads x 4 columns
+BN = 256                  # columns a CTA: four column warps of 64
+GROUPS = (32, 64, 128)
+BITS = (4, 8)
+DTYPES = ("float32", "bfloat16", "float16")
+SMEM_LIMIT = 232_448      # H100 opt-in dynamic shared memory a block
+SMEM_SM = 233_472         # shared memory an SM holds; 1 KB a block is reserved
+MAX_SPLITS = 8            # the portable cluster size
+RED_STRIDE = BN + 4       # floats a row of the split-reduce tile
+# a CTA's fixed cost (filling the ring, the cluster's reduction), in groups
+SPLIT_FILL = 5
+# (upper M, name) of the buckets of ``launches_by_m``; above the last: ">512"
+M_BUCKETS = ((1, "1"), (8, "2-8"), (16, "9-16"), (64, "17-64"),
+             (256, "65-256"), (512, "257-512"))
+_ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2}
 
 
-def _pick_bm(M: int) -> int:
-    """Skinny M tile for decode, 16 rows for prefill."""
-    for c in _BM:
-        if M <= c:
-            return c
-    return _BM[-1]
+def m_bucket(M: int) -> str:
+    """The ``launches_by_m`` bucket of a launch with M rows."""
+    for top, name in M_BUCKETS:
+        if M <= top:
+            return name
+    return ">512"
 
 
-def _pick_splits(M: int, N: int, n_groups: int, bm: int, n_sm: int):
-    """Split K over about four CTAs per SM for a skinny M (enough loads in
-    flight), two above 16 rows; each split covers whole quantisation
-    groups. Returns (splits, groups_per_split)."""
-    tiles = -(-N // _COLS_PER_CTA) * -(-M // bm)
-    waves = 4 if M <= _BM[-1] else 2
-    want = max(1, min(n_groups, -(-waves * n_sm // tiles)))
-    gps = -(-n_groups // want)
-    return -(-n_groups // gps), gps
+@dataclass(frozen=True)
+class Plan:
+    """One launch of the kernel; the fields up to ``smem`` are the C
+    struct ``Wna16Plan``, in its order. Offsets and strides are bytes."""
+    bm: int                # rows of x a CTA: 8 or 16 (decode), 64
+    splits: int            # CTAs along K a tile, one thread block cluster
+    groups_per_split: int
+    passes: int            # mma passes a k-step
+    stages: int            # cp.async ring depth, in quantisation groups
+    x_stride: int
+    pk_stride: int
+    off_pk: int
+    off_s: int
+    off_z: int
+    off_inv: int
+    stage_bytes: int
+    smem: int
+    grid: tuple            # (N tiles, M tiles, splits)
+
+
+class _CPlan(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in Plan.__dataclass_fields__
+                if f != "grid"]
+
+
+def _refuse(msg: str) -> None:
+    raise ValueError(f"wna16_gemm: {msg}")
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, K: int, N: int, *, bits: int, group: int, x_dtype: str,
+         inv_act: bool, n_sm: int = 132) -> Plan:
+    """The launch of x (M, K) ``x_dtype`` × an int``bits`` (K, N) weight of
+    quantisation ``group``, with or without ``inv_act``, on a card of
+    ``n_sm`` SMs. Raises ValueError for what the kernel is not built for.
+
+    Passes: the mma runs on x itself for bf16 / fp16 x (one pass), on two
+    bf16 parts of x * inv_act for 16-bit x with inv_act, and on three for
+    float32 x (exact). Rows: an 8- or 16-row decode tile (four warps, up to
+    four CTAs an SM) up to M = 16, else 64 rows (eight warps, one CTA an
+    SM). Splits: the power of two of K splits (at most ``MAX_SPLITS``, whole
+    groups each: clusters of 3, 5, 6 or 7 CTAs measured slower) that
+    minimises waves x (groups a CTA + ``SPLIT_FILL``) at the most CTAs an SM
+    that hold two stages; ties take fewer splits. Stages: the deepest ring
+    (at most four groups, and the groups a CTA walks plus one) whose shared
+    memory still lets every CTA of the grid be resident at once, or as many
+    as the most CTAs an SM allow."""
+    if bits not in BITS:
+        _refuse(f"bits={bits} is not built (takes {BITS})")
+    if x_dtype not in DTYPES:
+        _refuse(f"x dtype {x_dtype} is not built (takes {DTYPES})")
+    if group not in GROUPS:
+        _refuse(f"group={group} is not built (takes {GROUPS})")
+    if K <= 0 or K % group:
+        _refuse(f"group={group} must divide K={K}")
+    if N <= 0 or N % 64:
+        _refuse(f"N={N} is not built (takes multiples of 64)")
+    if M <= 0:
+        _refuse(f"M={M}: nothing to launch")
+    passes = 3 if x_dtype == "float32" else (2 if inv_act else 1)
+    # CTAs an SM the kernel's registers allow: decode tiles (128 threads) up
+    # to four, three with the split passes; prefill tiles (256) one
+    if M <= 16:
+        bm = 8 if M <= 8 else 16
+        occupancy = (3, 2, 1) if passes > 1 else (4, 3, 2, 1)
+    else:
+        bm, occupancy = 64, (1,)
+    size = _ITEMSIZE[x_dtype]
+    # row paddings keep the 8 rows of an ldmatrix / the 4 rows of a packed
+    # load on distinct banks
+    x_stride = group * size + (32 if size == 4 else 16)
+    pk_rows, pk_stride = (group // 2, BN + 32) if bits == 4 else (group, BN + 16)
+    off_pk = bm * x_stride
+    off_s = off_pk + pk_rows * pk_stride
+    off_z = off_s + BN * 4
+    off_inv = off_z + BN * 4
+    stage_bytes = off_inv + (group * 4 if inv_act else 0)
+    red = bm * RED_STRIDE * 4
+
+    def depth(per_sm):            # stages (at most four) for per_sm CTAs an SM
+        return min(4, min(SMEM_LIMIT, SMEM_SM // per_sm - 1024) // stage_bytes)
+
+    per_sm = next((n for n in occupancy if depth(n) >= 2), 0)
+    if not per_sm:
+        _refuse(f"group={group} x {x_dtype} does not fit two stages")
+    n_groups = K // group
+    tiles = -(-N // BN) * -(-M // bm)
+    best = None
+    for s in (1, 2, 4, MAX_SPLITS):
+        if s > n_groups:
+            break
+        gps = -(-n_groups // s)
+        splits = -(-n_groups // gps)
+        if splits & (splits - 1):
+            continue
+        cost = -(-tiles * splits // (n_sm * per_sm)) * (gps + SPLIT_FILL)
+        if best is None or cost < best[0]:
+            best = (cost, splits, gps)
+    _, splits, gps = best
+    # as deep a ring as the SMs this grid fills allow, at most the groups a
+    # CTA walks (and the one in use)
+    per_sm = min(per_sm, -(-tiles * splits // n_sm))
+    stages = max(2, min(depth(per_sm), gps + 1))
+    smem = max(stages * stage_bytes, red)
+    return Plan(bm=bm, splits=splits, groups_per_split=gps,
+                passes=passes, stages=stages, x_stride=x_stride,
+                pk_stride=pk_stride, off_pk=off_pk, off_s=off_s, off_z=off_z,
+                off_inv=off_inv, stage_bytes=stage_bytes, smem=smem,
+                grid=(-(-N // BN), -(-M // bm), splits))
+
+
+@functools.lru_cache(maxsize=4096)
+def _c_plan(p: Plan) -> _CPlan:
+    return _CPlan(*astuple(p)[:-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib():
@@ -42,14 +172,15 @@ def _lib():
     fn = lib.morph_wna16_gemm
     if not fn.argtypes:      # ctypes would pass a Python int as a 32-bit int
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i,
+                       ctypes.POINTER(_CPlan), p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def _check(cond: bool, msg: str) -> None:
     if not cond:
-        raise ValueError(f"wna16_gemm: {msg}")
+        _refuse(msg)
 
 
 def wna16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -62,15 +193,13 @@ def wna16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     _check(x.dtype in (torch.float32, torch.bfloat16, torch.float16),
            f"x dtype {x.dtype} (takes float32, bfloat16, float16)")
     M, K = x.shape
-    _check(bits in (4, 8), f"bits={bits} (takes 4 or 8)")
-    _check(group > 0 and K % group == 0, f"group={group} must divide K={K}")
-    _check(bits == 8 or group % 2 == 0, "int4 needs an even group")
+    _check(bits in BITS, f"bits={bits} (takes 4 or 8)")
     _check(packed.dtype == torch.uint8, "packed must be uint8")
+    _check(group > 0 and K % group == 0, f"group={group} must divide K={K}")
     N = packed.shape[-1]
     kp = K // 2 if bits == 4 else K
     _check(tuple(packed.shape) == (kp, N), f"packed {tuple(packed.shape)} "
            f"!= ({kp}, {N})")
-    _check(N % 4 == 0, f"N={N} must be a multiple of 4")
     for name, t in (("scales", scales), ("zeros", zeros)):
         _check(t.dtype == torch.float32 and tuple(t.shape) == (K // group, N),
                f"{name} must be float32 ({K // group}, {N})")
@@ -83,17 +212,20 @@ def wna16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         if t is not None:
             _check(t.device == dev, f"{name} is on {t.device}, x on {dev}")
             _check(t.is_contiguous(), f"{name} must be contiguous")
-            _check(t.data_ptr() % 16 == 0 or not t.is_cuda,
-                   f"{name} must be 16-byte aligned")
-    bm = _pick_bm(M)
-    _check(bm * group * 4 <= _SMEM_LIMIT, f"group={group} too large")
+    x_dtype = str(x.dtype).replace("torch.", "")
+    if M:       # refuses what is not built, on any device
+        plan(M, K, N, bits=bits, group=group, x_dtype=x_dtype,
+             inv_act=inv_act is not None)
     _check(x.is_cuda, "x must be a CUDA tensor")
+    for name, t in (("x", x), ("packed", packed), ("scales", scales),
+                    ("zeros", zeros), ("inv_act", inv_act), ("bias", bias)):
+        if t is not None:
+            _check(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0:
         return out
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, gps = _pick_splits(M, N, K // group, bm, n_sm)
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=dev)
+    p = plan(M, K, N, bits=bits, group=group, x_dtype=x_dtype,
+             inv_act=inv_act is not None, n_sm=_n_sm(dev.index or 0))
     lib = _lib()
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
@@ -101,11 +233,13 @@ def wna16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         rc = lib.morph_wna16_gemm(
             x.data_ptr(), build.dtype_code(x.dtype), packed.data_ptr(),
             scales.data_ptr(), zeros.data_ptr(), ptr(inv_act), ptr(bias),
-            out.data_ptr(), ws.data_ptr(), M, K, N, bits, group, bm, splits,
-            gps, stream)
+            out.data_ptr(), M, K, N, bits, group, ctypes.byref(_c_plan(p)),
+            stream)
     build.check_rc(lib, rc, "wna16_gemm")
     wna16_gemm.launches += 1
+    wna16_gemm.launches_by_m[m_bucket(M)] += 1
     return out
 
 
 wna16_gemm.launches = 0
+wna16_gemm.launches_by_m = collections.Counter()

@@ -172,8 +172,8 @@ def test_wrappers_reject_bad_inputs():
     """The CUDA wrappers check dtype, shape and device before launching;
     on a CPU tensor they raise rather than fall back."""
     x = torch.zeros((2, 64), dtype=torch.bfloat16)
-    packed = torch.zeros((32, 16), dtype=torch.uint8)
-    sz = torch.zeros((2, 16), dtype=torch.float32)
+    packed = torch.zeros((32, 64), dtype=torch.uint8)
+    sz = torch.zeros((2, 64), dtype=torch.float32)
     with pytest.raises(ValueError, match="packed must be uint8"):
         wna16_gemm(x, packed.to(torch.int8), sz, sz, bits=4, group=32)
     with pytest.raises(ValueError, match="packed"):
@@ -371,10 +371,18 @@ def test_cuda_kernels_match_plain_versions():
         b = ref.paged_chunk_ref(q, kn, vn, kp, vp, tables, 13, **kw)
         torch.testing.assert_close(a, b, **TOL)
     from repro_torch.quant import quantize_tensor
-    x = torch.randn((5, 256), device=dev)
-    qt = quantize_tensor(torch.randn((256, 128), device=dev) * 0.05, bits=4,
-                         group=64)
-    torch.testing.assert_close(
-        wna16_gemm(x, qt.packed, qt.scales, qt.zeros, bits=4, group=64),
-        ref.wna16_ref(x, qt.packed, qt.scales, qt.zeros, bits=4, group=64),
-        **TOL)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    act = torch.rand((256,), generator=gen, device=dev) + 0.5
+    for bits in (4, 8):
+        for scale in (None, act):       # without and with AWQ inv_act
+            qt = quantize_tensor(
+                torch.randn((256, 128), generator=gen, device=dev) * 0.05,
+                bits=bits, group=64, act_scale=scale)
+            bias = None if scale is None else torch.randn(
+                (128,), generator=gen, device=dev)
+            for M in (1, 5, 12, 17, 256):   # row tiles of 8, 16 and 64
+                x = torch.randn((M, 256), generator=gen, device=dev)
+                args = (x, qt.packed, qt.scales, qt.zeros, qt.inv_act, bias)
+                torch.testing.assert_close(
+                    wna16_gemm(*args, bits=bits, group=64),
+                    ref.wna16_ref(*args, bits=bits, group=64), **TOL)
