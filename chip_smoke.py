@@ -16,7 +16,9 @@ raises on failure:
    both models' matmul shapes, its main case at one M of each
    ``launches_by_m`` bucket, and held at odd M, with inv_act and a bias,
    float32 and float16 x and groups of 64 and 32; its bound at the mma
-   passes of its launch plan; paged decode at G = 1, 4, 6 and 12, chunk
+   passes of its launch plan; paged decode at G = 1, 4, 6 and 12 and at
+   the engine's own decode shapes (8 slots, idle ones at length 0, table
+   widths 8 to 64), each with its launch plan's splits and CTAs; chunk
    prefill at G = 1, 4, 6, 7 and 12 and head widths 64, 128 and 256, and
    the decode and chunk walks' quantized-KV lane over pools quantized by
    ``PagedKVPool.quantize_blocks``, int8 and int4) against its plain
@@ -24,11 +26,13 @@ raises on failure:
    error against a stated tolerance and CUDA-event medians of the kernel,
    the plain version and one library call, beside the least time the
    card could take (the chunk walks: at their tensor-core passes, with
-   the float32 CUDA-core bound of earlier runs logged beside it); a
-   zeroed quantized-KV
+   the float32 CUDA-core bound of earlier runs logged beside it; the
+   decode walk's quantized lane at the bytes its per-block skip reads, the
+   earlier 5-byte yardstick logged once); a zeroed quantized-KV
    sidecar must give the no-quant kernel's output exactly;
-   each engine phase below logs K1's launches by M bucket and an estimate
-   of its K1 device time from these timings;
+   each engine phase below logs K1's launches by M bucket and K2's and
+   K2-q's by table width, with estimates of their device time from these
+   timings;
 3. engine: the quickstart path — LIS profile, int4 swap plan, the
    token-budgeted ``MorphServeEngine`` serving a bursty trace with real
    compute — on Llama-2-7B at full width (d 4096, 32 heads, d_ff 11008,
@@ -287,12 +291,15 @@ def wna16_bounds(results):
     return by_m
 
 
-def _pool_case(torch, gen, B, lens, KVH, Dh, bs, extra_blocks=0):
+def _pool_case(torch, gen, B, lens, KVH, Dh, bs, extra_blocks=0, nb=None):
     """Pools (cap, bs, KVH, Dh) f32 and block tables with globally distinct
-    live ids (the engine's block-ownership contract); padding is scratch 0."""
+    live ids (the engine's block-ownership contract); padding is scratch 0.
+    The table is ``nb`` wide, by default the power of two at or above the
+    longest sequence's blocks plus ``extra_blocks``."""
     need = [-(-int(n) // bs) for n in lens]
-    nb = max(1, max(need) + extra_blocks)
-    nb = 1 << (nb - 1).bit_length()
+    if nb is None:
+        nb = max(1, max(need) + extra_blocks)
+        nb = 1 << (nb - 1).bit_length()
     cap = sum(need) + 1
     kp = torch.randn((cap, bs, KVH, Dh), generator=gen, device="cuda")
     vp = torch.randn((cap, bs, KVH, Dh), generator=gen, device="cuda")
@@ -400,9 +407,8 @@ def tensor_core_bounds(results, built):
             f"{r['f32_bound_ms']:.4f} ms)")
 
 
-# (B, ctx, H, KVH, window, softcap, fused). G = H / KVH: 1, 4, and past
-# the 8 rows a CTA holds, 6 (48 / 8: Nemotron-4-15B's layout) and 12
-# (96 / 8: Command R+'s), which take two row groups
+# (B, ctx, H, KVH, window, softcap, fused). G = H / KVH: 1, 4, 6 (48 / 8:
+# Nemotron-4-15B's layout) and 12 (96 / 8: Command R+'s)
 WIDE_G = [(8, 2048, H, 8, 0, 0.0, fused) for H in (48, 96)
           for fused in (True, False)]
 DECODE_CASES = ([(B, ctx, 32, 32, 0, 0.0, fused) for B in (1, 8)
@@ -413,99 +419,207 @@ DECODE_CASES = ([(B, ctx, 32, 32, 0, 0.0, fused) for B in (1, 8)
 DECODE_Q_CASES = [(8, 2048, 32, 32, 0, 0.0, True),
                   (8, 2048, 32, 8, 64, 30.0, True),
                   (8, 2048, 32, 32, 0, 0.0, False)] + WIDE_G
+# The engine's own decode launches (Llama-2-7B, 32 / 32 heads, fused): all
+# 8 slots, idle ones at length 0 with an all-scratch row, the table as wide
+# as the power of two at or above the longest row's blocks, the new token's
+# included (the engine's bucketing), ragged lengths up to its 512-token
+# prompts plus 48 generated.
+# (table width, lens); K2-q at the two widest, every full block but each
+# sequence's tail quantized.
+ENGINE_DECODE_CASES = [(8, (118, 97, 77, 0, 53, 31, 0, 12)),
+                       (16, (240, 201, 150, 0, 99, 60, 0, 17)),
+                       (32, (511, 431, 300, 0, 207, 160, 0, 33)),
+                       (64, (559, 529, 411, 0, 250, 130, 0, 48))]
+ENGINE_DECODE_Q_CASES = ENGINE_DECODE_CASES[2:]
+
+
+def _decode_plan_note(B, H, KVH, Dh, bs, nb_t, window):
+    """The launch planner's splits, CTAs and ring for a K2 case (none when
+    the port under test has no decode planner)."""
+    from repro_torch.kernels import plan
+    if not hasattr(plan, "decode_plan"):
+        return "", None
+    p = plan.decode_plan(B=B, H=H, KVH=KVH, Dh=Dh, bs=bs, nb_t=nb_t,
+                         q_dtype="bfloat16", kv_dtype="float32",
+                         window=window)
+    return (f"; plan {p.splits} splits, {p.splits * KVH * B} CTAs, "
+            f"{p.stages} stages", dict(splits=p.splits,
+                                       ctas=p.splits * KVH * B,
+                                       stages=p.stages))
+
+
+def _decode_case(torch, gen, timer, results, name, B, lens, nb, H, KVH,
+                 window, softcap, fused, bits):
+    """One K2 (``bits=None``) or K2-q case: B sequences of ``lens`` over a
+    table ``nb`` wide (None: the power of two above the longest plus one);
+    with ``bits`` the pools are quantized through the pool's codec, every
+    block except each sequence's tail, after a zeroed sidecar is shown to
+    give the plain lane's output exactly. Held to the plain version, timed
+    beside it and SDPA, with its bound: each input read once, the pools at
+    the bytes the lane reads (K2-q: 1 byte an element of a quantized block,
+    the pool's width of an fp one, and the block's 16 bytes of scale and
+    zero)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_decode
+    bs, Dh = 16, 128
+    G = H // KVH
+    kernel = "paged_decode" if bits is None else "paged_decode_q"
+    lens = torch.tensor(list(lens), dtype=torch.int32, device="cuda")
+    kp, vp, tables = _pool_case(torch, gen, B, lens.tolist(), KVH, Dh, bs,
+                                extra_blocks=1, nb=nb)
+    q = torch.randn((B, H, Dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kn = torch.randn((B, KVH, Dh), generator=gen, device="cuda")
+    vn = torch.randn((B, KVH, Dh), generator=gen, device="cuda")
+    kw = dict(scale=Dh ** -0.5, window=window, softcap=softcap,
+              fused_new=fused)
+    noop = None
+    if bits is not None:
+        # a zeroed sidecar must give the no-quant kernel's output exactly
+        zero = (torch.zeros(kp.shape, dtype=torch.int8, device="cuda"),) \
+            * 2 + (torch.zeros(kp.shape[0], device="cuda"),) * 4
+        a0 = (q, kn if fused else None, vn if fused else None, kp, vp,
+              tables, lens)
+        d0 = paged_decode(*a0, **kw)
+        d1 = paged_decode(*a0, kv_quant=zero, **kw)
+        torch.cuda.synchronize()
+        noop = float((d0.float() - d1.float()).abs().max())
+        if noop != 0.0:
+            raise AssertionError(f"decode-q no-op bundle differs: {noop}")
+        qids = [int(tables[b, j]) for b in range(B)
+                for j in range((int(lens[b]) - 1) // bs)]
+        kp, vp, kvq = _quantize(torch, kp, vp, qids, bits)
+        kw["kv_quant"] = kvq
+    a = (q, kn if fused else None, vn if fused else None, kp, vp, tables,
+         lens)
+    want = ref.paged_decode_ref(*a, **kw)
+    got = paged_decode(*a, **kw)
+    torch.cuda.synchronize()
+    err = check_close(name, got, want)
+    t_k = timer.ms(lambda: paged_decode(*a, **kw))
+    t_p = timer.ms(lambda: ref.paged_decode_ref(*a, **kw))
+    # visited work: each sequence's visible pool tokens (+ the new one)
+    qpos = lens + (1 if fused else 0) - 1
+    lens_h = lens.tolist()
+    first = [max(0, int(qp) - window + 1) if window else 0
+             for qp in qpos.tolist()]
+    vis_tot = sum(n - f for n, f in zip(lens_h, first)) + (B if fused else 0)
+    nbytes = (q.numel() * 2 * 2 + (B * KVH * Dh * 4 * 2 if fused else 0)
+              + tables.numel() * 4 + B * 4)
+    flops = 4 * G * Dh * KVH * vis_tot
+    elems = KVH * Dh * 2          # K and V elements of one token
+    old_bytes = nbytes
+    if bits is None:
+        nbytes += sum(n - f for n, f in zip(lens_h, first)) * elems * 4
+    else:
+        scale_row = kvq[2].tolist()
+        tab = tables.tolist()
+        for b in range(B):
+            for j in range(first[b] // bs, -(-lens_h[b] // bs)):
+                n_tok = min(lens_h[b], (j + 1) * bs) - max(first[b], j * bs)
+                quant = scale_row[tab[b][j]] != 0.0
+                nbytes += n_tok * elems * (1 if quant else 4) + 16
+                old_bytes += n_tok * elems * 5 + 16
+                if quant:
+                    flops += 3 * elems * n_tok
+    bound = max(nbytes / HBM_BYTES_S, flops / F32_FLOP_S) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_S >= flops / F32_FLOP_S \
+        else "operations"
+    # library: SDPA over the gathered (pre-dequantized) visible span
+    T = int(lens.max()) + (1 if fused else 0)
+    kpos = torch.arange(T, device="cuda")
+    mask = kpos[None, :] < (lens[:, None] + (1 if fused else 0))
+    if window:
+        mask &= kpos[None, :] > (qpos[:, None] - window)
+    kp2, vp2 = (kp, vp) if bits is None else _dequantized(torch, kp, vp,
+                                                          kvq)
+    rows = tables.shape[1] * bs
+    dense = []
+    for pool, new in ((kp2, kn), (vp2, vn)):
+        x = pool[tables.long()].reshape(B, rows, KVH, Dh).float()
+        if T > rows:
+            x = torch.cat([x, x.new_zeros((B, T - rows, KVH, Dh))], dim=1)
+        x = x[:, :T].clone()
+        if fused:      # the new token at position lens[b]
+            x[torch.arange(B, device="cuda"), lens.long()] = new
+        dense.append(x.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+                     .contiguous())
+    qf = q[:, :, None].float().contiguous()
+    F = torch.nn.functional
+    t_l = timer.ms(lambda: F.scaled_dot_product_attention(
+        qf, dense[0], dense[1], attn_mask=mask[:, None, None, :]))
+    del dense
+    note, planned = _decode_plan_note(B, H, KVH, Dh, bs, tables.shape[1],
+                                      window)
+    row = dict(kernel=kernel, case=name, err=err, ms=t_k, plain_ms=t_p,
+               library_ms=t_l, bound_ms=bound, bound_by=by, noop_err=noop,
+               nb_t=tables.shape[1], plan=planned)
+    if bits is not None:
+        row["bound_ms_5b"] = max(old_bytes / HBM_BYTES_S,
+                                 flops / F32_FLOP_S) * 1e3
+    results.append(row)
+    log(f"  {name}: err {err:.2e} kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+        f"sdpa {t_l:.4f} ms bound {bound:.4f} ms ({by})"
+        + ("" if noop is None else f"; no-op bundle diff {noop}") + note)
 
 
 def decode_cases(torch, timer, results, cases=DECODE_CASES, bits=None):
-    """K2 (``bits=None``) or, with ``bits``, K2-q: the pools are quantized
-    through the pool's codec, every block except each sequence's tail."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_decode
+    """K2 (``bits=None``) or, with ``bits``, K2-q (``_decode_case``) at
+    ``cases``, ragged lengths from each case's context."""
     gen = torch.Generator(device="cuda").manual_seed(12 if bits is None
                                                      else 40 + bits)
-    bs, Dh = 16, 128
-    kernel = "paged_decode" if bits is None else "paged_decode_q"
     for B, ctx, H, KVH, window, softcap, fused in cases:
-        G = H // KVH
-        lens = torch.tensor([ctx - (b * 5) % max(ctx // 2, 1)
-                             for b in range(B)], dtype=torch.int32,
-                            device="cuda")
-        kp, vp, tables = _pool_case(torch, gen, B, lens.tolist(), KVH, Dh, bs,
-                                    extra_blocks=1)
-        q = torch.randn((B, H, Dh), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        kn = torch.randn((B, KVH, Dh), generator=gen, device="cuda")
-        vn = torch.randn((B, KVH, Dh), generator=gen, device="cuda")
-        kw = dict(scale=Dh ** -0.5, window=window, softcap=softcap,
-                  fused_new=fused)
-        noop = None
-        if bits is not None:
-            # a zeroed sidecar must give the no-quant kernel's output exactly
-            zero = (torch.zeros(kp.shape, dtype=torch.int8, device="cuda"),) \
-                * 2 + (torch.zeros(kp.shape[0], device="cuda"),) * 4
-            a0 = (q, kn if fused else None, vn if fused else None, kp, vp,
-                  tables, lens)
-            d0 = paged_decode(*a0, **kw)
-            d1 = paged_decode(*a0, kv_quant=zero, **kw)
-            torch.cuda.synchronize()
-            noop = float((d0.float() - d1.float()).abs().max())
-            if noop != 0.0:
-                raise AssertionError(f"decode-q no-op bundle differs: {noop}")
-            qids = [int(tables[b, j]) for b in range(B)
-                    for j in range((int(lens[b]) - 1) // bs)]
-            kp, vp, kvq = _quantize(torch, kp, vp, qids, bits)
-            kw["kv_quant"] = kvq
-        a = (q, kn if fused else None, vn if fused else None, kp, vp, tables,
-             lens)
-        want = ref.paged_decode_ref(*a, **kw)
-        got = paged_decode(*a, **kw)
-        torch.cuda.synchronize()
+        lens = [ctx - (b * 5) % max(ctx // 2, 1) for b in range(B)]
         name = (f"decode B={B} ctx={ctx} H={H} KVH={KVH} w={window} "
                 f"cap={softcap} fused={fused}"
                 + ("" if bits is None else f" int{bits}"))
-        err = check_close(name, got, want)
-        t_k = timer.ms(lambda: paged_decode(*a, **kw))
-        t_p = timer.ms(lambda: ref.paged_decode_ref(*a, **kw))
-        # visited work: each sequence's visible pool tokens (+ the new one);
-        # the quantized lane also reads the int8 mirror of every visited
-        # token and does its FMA (3 operations an element of k and of v)
-        qpos = lens + (1 if fused else 0) - 1
-        vis = [min(int(n), window - (1 if fused else 0)) if window else int(n)
-               for n in lens]
-        vis_tot = sum(vis) + (B if fused else 0)
-        pool_tok = sum(vis)
-        per_tok = KVH * Dh * (4 if bits is None else 5) * 2
-        nbytes = (q.numel() * 2 * 2 + pool_tok * per_tok
-                  + (B * KVH * Dh * 4 * 2 if fused else 0)
-                  + tables.numel() * 4 + B * 4)
-        flops = 4 * G * Dh * KVH * vis_tot
-        if bits is not None:
-            nbytes += 4 * 4 * sum(-(-v // bs) + 1 for v in vis)
-            flops += 6 * KVH * Dh * pool_tok
-        bound = max(nbytes / HBM_BYTES_S, flops / F32_FLOP_S) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_S >= flops / F32_FLOP_S \
-            else "operations"
-        # library: SDPA over the gathered (pre-dequantized) visible span
-        T = int(lens.max()) + (1 if fused else 0)
-        kpos = torch.arange(T, device="cuda")
-        mask = kpos[None, :] < (lens[:, None] + (1 if fused else 0))
-        if window:
-            mask &= kpos[None, :] > (qpos[:, None] - window)
-        kp2, vp2 = (kp, vp) if bits is None else _dequantized(torch, kp, vp,
-                                                              kvq)
-        if fused:          # the new token at position lens[b] of a copy
-            kp2, vp2 = kp2.clone(), vp2.clone()
-            blk = tables.long().gather(1, (lens.long() // bs)[:, None])[:, 0]
-            kp2[blk, lens.long() % bs] = kn
-            vp2[blk, lens.long() % bs] = vn
-        lib = _sdpa_gathered(torch, q[:, :, None], kp2, vp2, tables, T,
-                             mask[:, None, None, :], G)
-        t_l = timer.ms(lib)
-        results.append(dict(kernel=kernel, case=name, err=err, ms=t_k,
-                            plain_ms=t_p, library_ms=t_l, bound_ms=bound,
-                            bound_by=by, noop_err=noop))
-        log(f"  {name}: err {err:.2e} kernel {t_k:.4f} ms plain {t_p:.4f} ms "
-            f"sdpa {t_l:.4f} ms bound {bound:.4f} ms ({by})"
-            + ("" if noop is None else f"; no-op bundle diff {noop}"))
+        _decode_case(torch, gen, timer, results, name, B, lens, None, H, KVH,
+                     window, softcap, fused, bits)
+
+
+def engine_decode_cases(torch, timer, results, cases=ENGINE_DECODE_CASES,
+                        bits=None):
+    """K2 or K2-q at the engine's own decode shapes (``ENGINE_DECODE_CASES``:
+    8 slots, idle ones at length 0, the engine's table widths). The first
+    K2-q case also logs its bound at the earlier yardstick of 5 bytes an
+    element (the fp slot and the int8 mirror of every visited element),
+    which the lane no longer reads."""
+    gen = torch.Generator(device="cuda").manual_seed(16 if bits is None
+                                                     else 60 + bits)
+    for nb, lens in cases:
+        name = (f"decode engine nb={nb} lens={'/'.join(map(str, lens))}"
+                + ("" if bits is None else f" int{bits}"))
+        _decode_case(torch, gen, timer, results, name, len(lens), lens, nb,
+                     32, 32, 0, 0.0, True, bits)
+    if bits is not None and cases:
+        first = next(x for x in results if x["kernel"] == "paged_decode_q"
+                     and x["case"].startswith("decode engine"))
+        log(f"  K2-q bound at the earlier 5-byte yardstick, "
+            f"{first['case']}: {first['bound_ms_5b']:.4f} ms (now "
+            f"{first['bound_ms']:.4f} ms at the bytes the skip reads)")
+
+
+def k2_table(results):
+    """{(kernel, table width): (ms, bound ms)} of the engine-shaped K2 and
+    K2-q cases, for the engine phases' estimate of their device time."""
+    return {(r["kernel"], r["nb_t"]): (r["ms"], r["bound_ms"])
+            for r in results if r["case"].startswith("decode engine")}
+
+
+def k2_estimate(by_nb, kernel, table):
+    """Estimated device time and time lost against the bound, in ms, of the
+    launches ``by_nb`` ({nb bucket: launches}): each bucket's launches x the
+    engine-shaped case at the nearest timed table width at or above it (the
+    widest where none is)."""
+    widths = sorted(w for k, w in table if k == kernel)
+    est = lost = 0.0
+    for bucket, n in by_nb.items():
+        top = 10 ** 9 if bucket.startswith(">") else int(bucket)
+        w = next((x for x in widths if x >= top), widths[-1])
+        ms, bound = table[kernel, w]
+        est += n * ms
+        lost += n * (ms - bound)
+    return est, lost
 
 
 # (Cp, pos0, H, KVH, Dh, window, softcap, fused): Llama-2-7B's 32 / 32
@@ -748,23 +862,26 @@ def build_model(torch, cfg):
     return cfg, params, prof.order
 
 
-def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms,
+def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
                  need=("wna16_gemm", "paged_decode", "paged_chunk")):
     """Serve the quickstart trace through ``MorphServeEngine`` with real
     compute under a budget of the weights plus ``kv_blocks`` float32 KV
     blocks, with the quantize-cold tier off or on. ``counters`` maps each
-    kernel's name to its (wrapper, counter attribute); the counts, and K1's
-    launches by M bucket, are set to 0 just before the run and read just
-    after. ``k1_ms`` maps each M bucket to the kernel phase's time of the
-    main K1 case at that bucket's M, for an estimate of the run's K1 device
-    time. With the tier off, the kernels in ``need`` must have launched, a
-    layer must have swapped and a prompt must have been chunked."""
+    kernel's name to its (wrapper, counter attribute); the counts, K1's
+    launches by M bucket and K2's and K2-q's by table width are set to 0
+    just before the run and read just after. ``k1_ms`` maps each M bucket
+    to the kernel phase's time of the main K1 case at that bucket's M, for
+    an estimate of the run's K1 device time; ``k2`` (``k2_table``) does the
+    same for K2 and K2-q by table width. With the tier off, the kernels in
+    ``need`` must have launched, a layer must have swapped and a prompt
+    must have been chunked."""
     from repro_torch.configs import ServingConfig
     from repro_torch.core import tree_bytes
     from repro_torch.engine import (EngineConfig, KVQuantConfig,
                                     MorphServeEngine, NVIDIA_H100_SXM,
                                     azure_like)
     from repro_torch.engine.kv_cache import kv_block_bytes
+    from repro_torch.kernels.paged_attention import NB_BUCKETS, paged_decode
     from repro_torch.kernels.wna16_gemm import wna16_gemm
 
     cfg, params, order = model
@@ -806,6 +923,8 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms,
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     wna16_gemm.launches_by_m.clear()
+    paged_decode.launches_by_nb.clear()
+    paged_decode.quant_launches_by_nb.clear()
     gc.collect()      # engines of earlier phases no one holds (their wrapped
     #                   exec methods form reference cycles) leave the peak
     torch.cuda.reset_peak_memory_stats()
@@ -817,6 +936,8 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms,
     launches = {name: getattr(fn, attr)
                 for name, (fn, attr) in counters.items()}
     k1_by_m = dict(wna16_gemm.launches_by_m)
+    k2_by_nb = {"paged_decode": dict(paged_decode.launches_by_nb),
+                "paged_decode_q": dict(paged_decode.quant_launches_by_nb)}
     peak_alloc = torch.cuda.max_memory_allocated()
 
     hist = eng.monitor.history
@@ -860,7 +981,21 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms,
         f"estimated K1 device time {k1_est:.1f} ms (an estimate: the "
         f"launches of each bucket x the kernel phase's (4096, 11008) int4 "
         f"time at {K1_BUCKET_M}, whatever the launch's shape)")
+    order = [str(w) for w in NB_BUCKETS] + [f">{NB_BUCKETS[-1]}"]
+    for name, by_nb in k2_by_nb.items():
+        if not by_nb:
+            continue
+        est, lost = k2_estimate(by_nb, name, k2)
+        log(f"{name} launches by table width "
+            f"{ {b: by_nb[b] for b in order if b in by_nb} }; estimated "
+            f"device time {est:.1f} ms, {lost:.1f} ms of it above the bound "
+            f"(an estimate: each bucket's launches x the engine-shaped case "
+            f"at that width or the next wider one)")
     fails = []
+    for name, by_nb in k2_by_nb.items():
+        if sum(by_nb.values()) != launches[name]:
+            fails.append(f"{name} launches by table width {by_nb} do not add "
+                         f"up to {launches[name]}")
     if sum(k1_by_m.values()) != launches["wna16_gemm"]:
         fails.append(f"K1 launches by M {k1_by_m} do not add up to "
                      f"{launches['wna16_gemm']}")
@@ -1005,12 +1140,17 @@ def main() -> int:
         f"{BF16_FLOP_S / 1e12:.0f} TFLOP/s, HBM {HBM_BYTES_S / 1e12:.2f} TB/s)")
     k1_ms = wna16_bounds(results)
     decode_cases(torch, timer, results)
+    log("K2 at the engine's decode shapes (8 slots, idle ones at length 0, "
+        "table widths 8-64)")
+    engine_decode_cases(torch, timer, results)
     chunk_cases(torch, timer, results)
     log("kv_quant lane (pools quantized through PagedKVPool.quantize_blocks,"
         " every block but each sequence's tail; a zeroed sidecar must equal "
         "the no-quant kernel exactly)")
     for bits in (8, 4):
         decode_cases(torch, timer, results, DECODE_Q_CASES, bits=bits)
+        engine_decode_cases(torch, timer, results, ENGINE_DECODE_Q_CASES,
+                            bits=bits)
         chunk_cases(torch, timer, results, CHUNK_Q_CASES, bits=bits)
     log("K3-mla, the chunk walk's latent mode (float32 q and latent pool; "
         f"tolerance {TOL['float32']})")
@@ -1018,6 +1158,7 @@ def main() -> int:
     log("chunk walks' bounds at their tensor-core passes (TF32 "
         f"{TF32_FLOP_S / 1e12:.0f} TFLOP/s, HBM {HBM_BYTES_S / 1e12:.2f} TB/s)")
     tensor_core_bounds(results, built)
+    k2 = k2_table(results)
     log(f"kernel phase {time.perf_counter() - t0:.1f} s")
 
     # 3-4. the main path with the quantize-cold tier off, then on, then off
@@ -1034,17 +1175,17 @@ def main() -> int:
     log("engine phase, kv-quant tier off (quickstart budget: weights + 8 "
         "KV blocks)")
     launches = engine_phase(torch, model, counters, kv_blocks=8,
-                            kv_quant=False, k1_ms=k1_ms)[1]
+                            kv_quant=False, k1_ms=k1_ms, k2=k2)[1]
     log("engine phase, kv-quant tier on (weights + 16 KV blocks: the "
         "budget at which the quickstart trace engages the tier)")
     eng, q_launches = engine_phase(torch, model, counters, kv_blocks=16,
-                                   kv_quant=True, k1_ms=k1_ms)
+                                   kv_quant=True, k1_ms=k1_ms, k2=k2)
     launches.update({k: q_launches[k]
                      for k in ("paged_decode_q", "paged_chunk_q")})
     log("engine phase, kv-quant tier off at the tier-on budget (weights + "
         "16 KV blocks: the control that separates the tier's effect)")
     engine_phase(torch, model, counters, kv_blocks=16, kv_quant=False,
-                 k1_ms=k1_ms)
+                 k1_ms=k1_ms, k2=k2)
     log(f"engine phases {time.perf_counter() - t0:.1f} s")
 
     # 5. step parity
@@ -1064,7 +1205,7 @@ def main() -> int:
         "blocks; chunks through K3-mla)")
     mla_eng, mla_launches = engine_phase(
         torch, mla, counters, kv_blocks=MLA_KV_BLOCKS, kv_quant=False,
-        k1_ms=k1_ms, need=("wna16_gemm", "paged_chunk_mla"))
+        k1_ms=k1_ms, k2=k2, need=("wna16_gemm", "paged_chunk_mla"))
     launches["paged_chunk_mla"] = mla_launches["paged_chunk_mla"]
     log(f"MLA engine phase {time.perf_counter() - t0:.1f} s")
     log(f"MLA step parity (kernels vs plain, tolerance {LOGIT_TOL} x "

@@ -15,8 +15,8 @@ root of another checkout of the repository (for example an unpacked
    spill stores and loads and its count of tensor-core instructions (HMMA /
    HGMMA) in ``cuobjdump -sass``;
 2. cases: chip_smoke.py's kernel cases of the wNa16 GEMM (K1), the decode
-   walk (K2, K2-q), the chunk walk (K3, K3-q) and its latent mode
-   (K3-mla), each held against its plain version and timed as
+   walk (K2, K2-q, with its engine-shaped cases), the chunk walk (K3,
+   K3-q) and its latent mode (K3-mla), each held against its plain version and timed as
    chip_smoke.py times it (CUDA-event medians, L2 flushed), in one child
    process per run; the table compares the kernel's times only. With
    ``--parent`` the runs go parent, this, this, parent, each child
@@ -47,9 +47,12 @@ ROOT = Path(__file__).resolve().parent
 REPORT_SOURCES = ("wna16_gemm", "paged_chunk", "paged_attention_mla",
                   "paged_attention")
 # the instantiations of the main path: K1 at decode and prefill M (bf16 x,
-# int4), K3 / K3-q (bf16 q, float32 pool) and K3-mla (float32 q and pool)
+# int4), K2 / K2-q and K3 / K3-q (bf16 q, float32 pool) and K3-mla
+# (float32 q and pool)
 MIX_KERNELS = ("wna16_kernel<bf16, 4, 8, 8, 0>",
                "wna16_kernel<bf16, 4, 64, 8, 0>",
+               "paged_decode_kernel<bf16, float, 128, 0>",
+               "paged_decode_kernel<bf16, float, 128, 1>",
                "paged_chunk_kernel<bf16, float, 128, 128, 0>",
                "paged_chunk_kernel<bf16, float, 128, 128, 1>",
                "paged_chunk_kernel<float, float, 576, 512, 0>")
@@ -177,9 +180,11 @@ def child(tree: Path, out: Path) -> int:
 
     each(cs.wna16_cases, cs.WNA16_CASES)
     each(cs.decode_cases, cs.DECODE_CASES)
+    each(cs.engine_decode_cases, cs.ENGINE_DECODE_CASES)
     each(cs.chunk_cases, cs.CHUNK_CASES)
     for bits in (8, 4):
         each(cs.decode_cases, cs.DECODE_Q_CASES, bits=bits)
+        each(cs.engine_decode_cases, cs.ENGINE_DECODE_Q_CASES, bits=bits)
         each(cs.chunk_cases, cs.CHUNK_Q_CASES, bits=bits)
     cs.mla_chunk_cases(torch, timer, results)
     out.write_text(json.dumps(dict(tree=str(tree), results=results,

@@ -12,6 +12,7 @@ source, all started together.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -102,6 +103,14 @@ def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
         lib.morph_error_string.argtypes = [ctypes.c_int]
         name = lib.morph_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({name})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device ``index`` (the launch planners'
+    ``n_sm``)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # dtype codes of the C interface (csrc/common.cuh)

@@ -1,7 +1,8 @@
-// The block walks shared by the paged-attention kernels: the online-softmax
-// update and quantized-KV helpers of the decode walk K2, and the
-// chunk-prefill walk K3 on tensor cores (`paged_chunk_kernel`, launched
-// through `ChunkKernel`). Included by paged_attention.cu (K2),
+// The block walks shared by the paged-attention kernels: the quantized-KV
+// operands, logit cap, dispatch and cp.async helpers that the decode walk
+// K2 shares, and the chunk-prefill walk K3 on tensor cores
+// (`paged_chunk_kernel`, launched through `ChunkKernel`). Included by
+// paged_attention.cu (K2),
 // paged_chunk.cu (K3 with and without its quantized-KV lane) and
 // paged_attention_mla.cu (K3's MLA latent mode), so that each library
 // instantiates only what it uses and the three build in parallel. Design
@@ -16,23 +17,8 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float neg_inf() { return __uint_as_float(0xff800000u); }
-
-// one online-softmax update of a row's state with key score s and value v
-template <int DPL>
-__device__ __forceinline__ void online_update(float s, const float (&v)[DPL],
-                                              float& m, float& l, float (&acc)[DPL]) {
-  const float m_new = fmaxf(m, s);
-  const float corr = expf(m - m_new);
-  const float p = expf(s - m_new);
-  l = l * corr + p;
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = acc[i] * corr + p * v[i];
-  m = m_new;
-}
 
 __device__ __forceinline__ float cap_logit(float s, float softcap) {
   return softcap > 0.f ? tanhf(s / softcap) * softcap : s;
@@ -47,37 +33,6 @@ struct KVQuant {
   const float* k_zero;
   const float* v_zero;
 };
-
-// per-block dequant parameters (all zero without the lane)
-struct BlockDequant {
-  float ks = 0.f, kz = 0.f, vs = 0.f, vz = 0.f;
-};
-
-template <bool KVQ>
-__device__ __forceinline__ BlockDequant block_dequant(const KVQuant& kvq, int blk) {
-  BlockDequant d;
-  if constexpr (KVQ) {
-    d.ks = kvq.k_scale[blk];
-    d.kz = kvq.k_zero[blk];
-    d.vs = kvq.v_scale[blk];
-    d.vz = kvq.v_zero[blk];
-  }
-  return d;
-}
-
-// pool element `off` of k and v as float, dequantized on the KVQ lane
-template <bool KVQ, typename TKV>
-__device__ __forceinline__ void load_kv(const TKV* __restrict__ k_pool,
-                                        const TKV* __restrict__ v_pool,
-                                        const KVQuant& kvq, const BlockDequant& d,
-                                        size_t off, float& k, float& v) {
-  k = morph::to_f32(k_pool[off]);
-  v = morph::to_f32(v_pool[off]);
-  if constexpr (KVQ) {
-    k = k + static_cast<float>(kvq.qk[off]) * d.ks + d.kz;
-    v = v + static_cast<float>(kvq.qv[off]) * d.vs + d.vz;
-  }
-}
 
 // Calls f(std::integral_constant<int, Dh>) for a head width the kernels
 // are built for; cudaErrorInvalidValue for any other.

@@ -14,7 +14,9 @@ v_scale, k_zero, v_zero)`` of one layer (int8 mirrors shaped like the pools,
 float32 ``(cap,)`` scale/zero rows); with it the kernel's KVQ lane
 dequantizes every visited pool block (K2-q, K3-q). Each wrapper counts the
 calls that launched its kernel: ``launches`` those without a bundle,
-``quant_launches`` those with one.
+``quant_launches`` those with one. ``paged_decode`` also counts them by
+:func:`nb_bucket` of the table width, in ``launches_by_nb`` and
+``quant_launches_by_nb``.
 
 ``paged_chunk_mla`` is K3's MLA latent mode (K3-mla, the wrapper of
 ``csrc/paged_attention_mla.cu``): one latent pool serves every query head,
@@ -22,12 +24,17 @@ scores span its full width and values are its first ``dv`` lanes. Its
 plain version is ``paged_chunk_ref(..., dv=dv)`` with the latent pool as
 both pools; it counts its launches in ``paged_chunk_mla.launches``.
 
-The chunk wrappers plan each launch with :mod:`repro_torch.kernels.plan`,
-which says which widths and dtypes are built, so that what the kernels lack
-is refused before the device check; the C side sizes its own launch.
+The wrappers plan each launch with :mod:`repro_torch.kernels.plan`, which
+says which widths and dtypes are built, so that what the kernels lack is
+refused before the device check. The chunk walks size their own launch on
+the C side; the decode walk executes the plan it is given
+(``plan.decode_plan``: context splits, ring depth, shared-memory layout),
+made from host integers only, so a decode launch reads no device value on
+the host.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -39,8 +46,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each C entry point (else ctypes passes pointers as int32)
 _ARGTYPES = {
     "morph_paged_decode": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                           _I, _I, _I, _I, _F, _I, _F, _I,
-                           _P, _P, _P, _P, _P, _P, _P],
+                           _I, _I, _I, _I, _I, _F, _I, _F, _I,
+                           _P, _P, _P, _P, _P, _P,
+                           ctypes.POINTER(plan.CDecodePlan), _P, _P, _P],
     "morph_paged_chunk": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I, _I,
                           _I, _I, _I, _I, _I, _F, _I, _F, _I,
                           _P, _P, _P, _P, _P, _P, _P],
@@ -142,7 +150,8 @@ def _check_device(what, q):
 
 
 def _check_aligned(what, **tensors):
-    """The chunk walk copies rows 16 bytes at a time (cp.async)."""
+    """The walks copy rows by cp.async (16 bytes a copy) or TMA, both from
+    16-byte aligned sources."""
     for name, t in tensors.items():
         if t is not None:
             _check(t.data_ptr() % 16 == 0, what,
@@ -151,6 +160,35 @@ def _check_aligned(what, **tensors):
 
 def _name(dtype) -> str:
     return str(dtype).replace("torch.", "")
+
+
+# The decode walk's split counters, one int32 a (sequence, kv head) row, by
+# (device index, stream): a launch leaves them 0 (the row's last split
+# resets its own), so the launches of one stream share one buffer.
+_DECODE_COUNTERS = {}
+
+
+def _decode_counters(dev, stream: int, rows: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    c = _DECODE_COUNTERS.get(key)
+    if c is None or c.numel() < rows:
+        c = torch.zeros(max(rows, 1024), dtype=torch.int32, device=dev)
+        _DECODE_COUNTERS[key] = c
+    return c
+
+
+# upper table widths of the buckets of ``launches_by_nb``; above: ">64"
+NB_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+
+
+def nb_bucket(nb_t: int) -> str:
+    """The ``launches_by_nb`` bucket of a decode launch whose block table
+    is ``nb_t`` entries wide: the power of two at or above it (the engine
+    buckets its tables to those)."""
+    for top in NB_BUCKETS:
+        if nb_t <= top:
+            return str(top)
+    return f">{NB_BUCKETS[-1]}"
 
 
 def paged_decode(q, k_new, v_new, k_pool, v_pool, tables, lens, *,
@@ -175,26 +213,44 @@ def paged_decode(q, k_new, v_new, k_pool, v_pool, tables, lens, *,
     _check(lens.dtype == torch.int32 and tuple(lens.shape) == (B,)
            and lens.device == q.device and lens.is_contiguous(), what,
            "lens must be int32 (B,) on q's device")
+    nb_t = tables.shape[1]
+    kw = dict(B=B, H=H, KVH=KVH, Dh=Dh, bs=bs, nb_t=nb_t,
+              q_dtype=_name(q.dtype), kv_dtype=_name(k_pool.dtype),
+              window=int(window))
+    if B:          # refuses what is not built, on any device
+        plan.decode_plan(**kw)
     quant = _check_kv_quant(what, kv_quant, k_pool)
     _check_device(what, q)
+    qk, qv = kv_quant[:2] if kv_quant is not None else (None, None)
+    _check_aligned(what, k_pool=k_pool, v_pool=v_pool, qk=qk, qv=qv)
     out = torch.empty_like(q)
     if B == 0:
         return out
+    p = plan.decode_plan(**kw, n_sm=build.sm_count(q.device.index or 0))
     lib = _lib("paged_attention")
     ptr = (lambda t: None if t is None else t.data_ptr())
+    G = H // KVH
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        # the partials (m, l, acc) of the splits of rows that take several
+        ws = torch.empty(B * KVH * p.splits * (G * Dh + 2 * G),
+                         dtype=torch.float32, device=q.device)
+        counters = _decode_counters(q.device, stream, B * KVH)
         rc = lib.morph_paged_decode(
             q.data_ptr(), build.dtype_code(q.dtype), k_pool.data_ptr(),
             v_pool.data_ptr(), build.dtype_code(k_pool.dtype), ptr(k_new),
             ptr(v_new), tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            B, H, KVH, Dh, bs, tables.shape[1], float(scale), int(window),
-            float(softcap), int(fused_new), *quant,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            B, H, KVH, Dh, bs, nb_t, k_pool.shape[0], float(scale),
+            int(window), float(softcap), int(fused_new), *quant,
+            ctypes.byref(plan.c_decode_plan(p)), ws.data_ptr(),
+            counters.data_ptr(), stream)
     build.check_rc(lib, rc, what)
     if kv_quant is None:
         paged_decode.launches += 1
+        paged_decode.launches_by_nb[nb_bucket(nb_t)] += 1
     else:
         paged_decode.quant_launches += 1
+        paged_decode.quant_launches_by_nb[nb_bucket(nb_t)] += 1
     return out
 
 
@@ -313,5 +369,7 @@ def paged_chunk_mla(q, latent_new, pool, tables, pos0: int, *, dv: int,
 
 
 paged_decode.launches = paged_decode.quant_launches = 0
+paged_decode.launches_by_nb = collections.Counter()
+paged_decode.quant_launches_by_nb = collections.Counter()
 paged_chunk.launches = paged_chunk.quant_launches = 0
 paged_chunk_mla.launches = 0

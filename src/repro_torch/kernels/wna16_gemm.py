@@ -162,11 +162,6 @@ def _c_plan(p: Plan) -> _CPlan:
     return _CPlan(*astuple(p)[:-1])
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sm(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _lib():
     lib = build.load("wna16_gemm")
     fn = lib.morph_wna16_gemm
@@ -225,7 +220,7 @@ def wna16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     if M == 0:
         return out
     p = plan(M, K, N, bits=bits, group=group, x_dtype=x_dtype,
-             inv_act=inv_act is not None, n_sm=_n_sm(dev.index or 0))
+             inv_act=inv_act is not None, n_sm=build.sm_count(dev.index or 0))
     lib = _lib()
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):

@@ -60,8 +60,7 @@ def _t(*arrays):
 @pytest.mark.parametrize("fused", [True, False])
 def test_plain_decode_matches_jax(H, KVH, window, softcap, fused):
     """Plain paged decode (both modes) against the JAX gather oracles,
-    across G in {1, 2, 6, 12} (6 and 12 take two of the decode kernel's
-    row groups of 8), window, softcap and ragged context lengths. The
+    across G in {1, 2, 6, 12}, window, softcap and ragged context lengths. The
     fused mode's pool read stops before the new token's slot, so the JAX
     xla lane (which reads it from the pool) must agree once it is there."""
     q, kn, vn, kp, vp, tables, lens = _decode_case(
@@ -353,7 +352,7 @@ def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernels have no CPU mode")
     dev = "cuda"
-    for H, KVH in ((4, 2), (12, 1)):     # G = 2, and 12 (two row groups)
+    for H, KVH in ((4, 2), (12, 1)):     # G = 2 and 12
         q, kn, vn, kp, vp, tables, lens = [
             t.to(dev) for t in _t(*_decode_case(5, 3, H, KVH, 32, 8, 4))]
         for fused in (True, False):
