@@ -6,20 +6,22 @@
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``src/repro_torch/kernels/build`` and runs seven phases, each of which
+``src/repro_torch/kernels/build`` and runs eight phases, each of which
 raises on failure:
 
 1. device: the card's name and power limit, torch/CUDA versions, and the
    kernels' build time;
 2. kernels: the launch planner (``kernels/plan.py``) against every built
    chunk instantiation, then every hand-written kernel (wNa16 GEMM at
-   both models' matmul shapes, its main case at one M of each
+   the dense models' matmul shapes and at the routed experts' of
+   DeepSeek-V3 and Llama-4 Maverick (M 1, 8, 64), its main case at one M
+   of each
    ``launches_by_m`` bucket, and held at odd M, with inv_act and a bias,
    float32 and float16 x and groups of 64 and 32; its bound at the mma
-   passes of its launch plan; paged decode at G = 1, 4, 6 and 12 and at
+   passes of its launch plan; paged decode at G = 1, 4, 5, 6 and 12 and at
    the engine's own decode shapes (8 slots, idle ones at length 0, table
    widths 8 to 64), each with its launch plan's splits and CTAs; chunk
-   prefill at G = 1, 4, 6, 7 and 12 and head widths 64, 128 and 256, and
+   prefill at G = 1, 4, 5, 6, 7 and 12 and head widths 64, 128 and 256, and
    the decode and chunk walks' quantized-KV lane over pools quantized by
    ``PagedKVPool.quantize_blocks``, int8 and int4) against its plain
    torch version at the main path's shapes, with the largest
@@ -46,15 +48,25 @@ raises on failure:
 5. step parity: one decode step and one chunk step of that model through
    the kernels against the same steps with the plain versions, then the
    same two steps with about half of the live blocks quantized (int8);
-6. MLA engine: DeepSeek-V3's three dense MLA layers at full width
-   (``DEEPSEEK_V3_671B.replace(n_layers=3)``: d 7168, 128 heads, q_lora
-   1536, kv_lora 512, rope 64, d_ff 18432, vocab 129280), bf16 weights
-   from a seeded generator, served through the same path and trace over
-   the float32 latent pool; chunks go through K3-mla (the chunk walk's
-   latent mode, also in phase 2, where a latent width the kernel is not
-   built for must raise on a CUDA tensor);
-7. MLA step parity: a decode step and a chunk step of that model at its
-   deepest swap level, kernels against plain versions.
+6. DeepSeek-V3 engine: its three dense MLA layers and its first MoE layer
+   at full width (``DEEPSEEK_V3_671B.replace(n_layers=4)``: d 7168, 128
+   heads, q_lora 1536, kv_lora 512, rope 64, d_ff 18432, 256 routed
+   experts of d_ff 2048, top-8, one shared expert, vocab 129280), bf16
+   weights from a seeded generator, served through the same path and
+   trace over the float32 latent pool, on a swap ladder whose first rung
+   reaches the MoE layer's LIS position; chunks go through K3-mla (the
+   chunk walk's latent mode, also in phase 2, where a latent width the
+   kernel is not built for must raise on a CUDA tensor) and every expert
+   of the swapped MoE layer through K1, whose expert launches, and the
+   MoE dispatch's host copies, it counts apart;
+7. DeepSeek-V3 step parity: a decode step and a chunk step of that model
+   at its deepest swap level, kernels against plain versions;
+8. Maverick: Llama-4 Maverick's first two layers at full width
+   (``LLAMA4_MAVERICK_400B.replace(n_layers=2)``: a dense layer and an
+   MoE layer of 128 routed experts of d_ff 8192, top-1, one shared
+   expert; 40 / 8 heads of 128, vocab 202048), its int4 swap plan, and a
+   decode step and a chunk step at the fp and at the all-int4 level,
+   kernels (K1, and K2 / K3 at G = 5) against plain versions.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It exits non-zero, with no ``ok`` line, when there is no CUDA device, when
@@ -69,6 +81,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -92,8 +105,8 @@ TOL = {"bfloat16": (1e-2, 1e-3), "float16": (2e-3, 1e-4),
 LOGIT_TOL = 5e-2          # relative to max|plain logits|
 
 REPS = 15
-# the MLA engine phase's budget: the weights plus this many float32 latent
-# blocks (3 layers x 16 x 576 x 4 B = 110.6 KB each)
+# the DeepSeek-V3 engine phase's budget: the weights plus this many float32
+# latent blocks (4 layers x 16 x 576 x 4 B = 147.5 KB each)
 MLA_KV_BLOCKS = 8
 SLEEP_CYCLES = 2_000_000      # ~1 ms at the H100's clock: covers the enqueue
 
@@ -159,11 +172,18 @@ def check_close(name, got, want):
 # Llama-2-7B: wq/wk/wv/wo, MLP up/gate, down; int4 and int8. DeepSeek-V3's
 # dense MLA layers (the swap plan's int4): w_dq, w_uq, w_dkv (its last 64
 # columns are the rope key), w_ukv (whole-prompt prefill's latent
-# expansion), wo, MLP up/gate, down. The main case, (4096, 11008) int4, is
-# timed at one M of each ``launches_by_m`` bucket (``K1_BUCKET_M``).
+# expansion), wo, MLP up/gate, down; the routed experts of both MoE models
+# (``MOE_KN``). The main case, (4096, 11008) int4, is timed at one M of
+# each ``launches_by_m`` bucket (``K1_BUCKET_M``).
 LLAMA_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
 DEEPSEEK_KN = ((7168, 1536), (1536, 24576), (7168, 576), (512, 32768),
                (16384, 7168), (7168, 18432), (18432, 7168))
+# the expert GEMMs of a swapped MoE layer (gate / up, then down): DeepSeek-V3
+# (d 7168, expert d_ff 2048) and Llama-4 Maverick (d 5120, expert d_ff
+# 8192); an expert's M is the rows routed to it, 1 to 64 at the engine's
+# decode and chunk steps
+MOE_KN = ((7168, 2048), (2048, 7168), (5120, 8192), (8192, 5120))
+MOE_M = (1, 8, 64)
 K1_BUCKET_M = {"1": 1, "2-8": 8, "9-16": 16, "17-64": 64, "65-256": 256,
                "257-512": 512, ">512": 1024}
 K1_MAIN = (4096, 11008, 4)
@@ -172,7 +192,8 @@ WNA16_CASES = ([(K, N, bits, (1, 8, 256), (8, 256) if bits == 8 else (1, 8, 256)
                 if (K, N, bits) != K1_MAIN]
                + [(*K1_MAIN, tuple(K1_BUCKET_M.values()),
                    tuple(K1_BUCKET_M.values()))]
-               + [(K, N, 4, (1, 8, 256), (8, 256)) for K, N in DEEPSEEK_KN])
+               + [(K, N, 4, (1, 8, 256), (8, 256)) for K, N in DEEPSEEK_KN]
+               + [(K, N, 4, MOE_M, MOE_M) for K, N in MOE_KN])
 
 
 def wna16_cases(torch, timer, results, cases=WNA16_CASES):
@@ -268,10 +289,10 @@ def wna16_bounds(results):
     """Each timed K1 case's least time on this card, in ms, as its
     ``bound_ms``: the larger of its bytes over the HBM rate and its FLOPs
     times the mma passes its launch plan takes over the bf16 tensor-core
-    rate. Returns {M bucket: ms} of the main case, for the engine phases'
-    estimate of K1's device time."""
+    rate. Returns {M bucket: ms} of the main case and {(K, N): {M: ms}} of
+    the int4 cases, for the engine phases' estimates of K1's device time."""
     from repro_torch.kernels.wna16_gemm import m_bucket, plan
-    by_m = {}
+    by_m, by_shape = {}, collections.defaultdict(dict)
     for r in results:
         w = r.get("k1_work")
         if w is None:
@@ -288,7 +309,9 @@ def wna16_bounds(results):
             f"{r['library_ms'] / r['bound_ms']:.1f}x")
         if (w["K"], w["N"], w["bits"]) == K1_MAIN:
             by_m[m_bucket(w["M"])] = r["ms"]
-    return by_m
+        if w["bits"] == 4:
+            by_shape[w["K"], w["N"]][w["M"]] = r["ms"]
+    return by_m, by_shape
 
 
 def _pool_case(torch, gen, B, lens, KVH, Dh, bs, extra_blocks=0, nb=None):
@@ -407,13 +430,15 @@ def tensor_core_bounds(results, built):
             f"{r['f32_bound_ms']:.4f} ms)")
 
 
-# (B, ctx, H, KVH, window, softcap, fused). G = H / KVH: 1, 4, 6 (48 / 8:
-# Nemotron-4-15B's layout) and 12 (96 / 8: Command R+'s)
+# (B, ctx, H, KVH, window, softcap, fused). G = H / KVH: 1, 4, 5 (40 / 8:
+# Llama-4 Maverick's), 6 (48 / 8: Nemotron-4-15B's) and 12 (96 / 8:
+# Command R+'s)
 WIDE_G = [(8, 2048, H, 8, 0, 0.0, fused) for H in (48, 96)
           for fused in (True, False)]
 DECODE_CASES = ([(B, ctx, 32, 32, 0, 0.0, fused) for B in (1, 8)
                  for ctx in (17, 256, 2048) for fused in (True, False)]
                 + [(8, 256, 32, 8, 0, 0.0, True),
+                   (8, 2048, 40, 8, 0, 0.0, True),
                    (8, 2048, 32, 32, 64, 30.0, True),
                    (8, 2048, 32, 8, 64, 30.0, False)] + WIDE_G)
 DECODE_Q_CASES = [(8, 2048, 32, 32, 0, 0.0, True),
@@ -623,12 +648,14 @@ def k2_estimate(by_nb, kernel, table):
 
 
 # (Cp, pos0, H, KVH, Dh, window, softcap, fused): Llama-2-7B's 32 / 32
-# heads of 128, GQA at G = 4, 6 (Nemotron-4-15B) and 12 (Command R+), and
+# heads of 128, GQA at G = 4, 5 (Llama-4 Maverick), 6 (Nemotron-4-15B) and
+# 12 (Command R+), and
 # the other widths the tiling serves: Dh 64 at 14 / 2 heads (InternVL2-1B's
 # language model, G = 7) and Dh 256 at 16 / 16 (Gemma-7B's attention)
 CHUNK_CASES = ([(Cp, pos0, 32, 32, 128, 0, 0.0, fused) for Cp in (16, 256)
                 for pos0 in (0, 200) for fused in (True, False)]
                + [(256, 200, 32, 8, 128, 0, 0.0, True),
+                  (256, 200, 40, 8, 128, 0, 0.0, True),
                   (256, 200, 32, 32, 128, 64, 30.0, True),
                   (16, 200, 32, 8, 128, 64, 30.0, False)]
                + [(256, 200, H, 8, 128, 0, 0.0, fused) for H in (48, 96)
@@ -839,9 +866,10 @@ def mla_chunk_cases(torch, timer, results):
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the quickstart path at full width, with the tier off / on
 # ---------------------------------------------------------------------------
-def build_model(torch, cfg):
+def build_model(torch, cfg, profile=True):
     """``cfg`` (a full-width config cut in depth) with bf16 weights from a
-    seeded generator, and its LIS swap order."""
+    seeded generator, and its LIS swap order (front to back without
+    ``profile``)."""
     from repro_torch.core import profile_swap_sequence
     from repro_torch.models import lm
 
@@ -850,31 +878,58 @@ def build_model(torch, cfg):
     calib = torch.randint(0, cfg.vocab, (2, 32), device="cuda",
                           generator=torch.Generator(device="cuda")
                           .manual_seed(1))
-    prof = profile_swap_sequence(cfg, params, calib, bits=4)
+    order = list(range(cfg.n_layers))
+    if profile:
+        order = profile_swap_sequence(cfg, params, calib, bits=4).order
     torch.cuda.synchronize()
     heads = (f"KVH={cfg.n_kv_heads}" if cfg.mla is None else
              f"MLA q_lora={cfg.mla.q_lora_rank} kv_lora="
              f"{cfg.mla.kv_lora_rank} rope={cfg.mla.qk_rope_head_dim}")
+    m = cfg.moe
+    experts = "" if m is None else (
+        f" experts {m.n_routed_experts} routed (d_ff {m.d_ff_expert}, top-"
+        f"{m.top_k}) + {m.n_shared_experts} shared")
     log(f"model: {cfg.name} x{cfg.n_layers} layers {lm.layer_kinds(cfg)} "
-        f"d={cfg.d_model} H={cfg.n_heads} {heads} d_ff={cfg.d_ff} "
-        f"vocab={cfg.vocab} {cfg.dtype}; LIS swap order {prof.order} "
-        f"({time.perf_counter() - t0:.1f} s incl. init)")
-    return cfg, params, prof.order
+        f"d={cfg.d_model} H={cfg.n_heads} {heads} d_ff={cfg.d_ff}{experts} "
+        f"vocab={cfg.vocab} {cfg.dtype}; "
+        f"{'LIS' if profile else 'front-to-back'} swap order {order} "
+        f"({time.perf_counter() - t0:.1f} s incl. init); params "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    return cfg, params, order
+
+
+def _k1_expert_estimate(expert_by, k1_shapes):
+    """Estimated device time, in ms, of the expert launches ``expert_by``
+    ({(K, N, M bucket): launches}): each launch x the kernel phase's time
+    of its expert shape at the smallest timed M at or above its bucket's
+    top (the largest timed M above that)."""
+    est = 0.0
+    for (K, N, bucket), n in expert_by.items():
+        times = k1_shapes[K, N]
+        top = 10 ** 9 if bucket.startswith(">") else int(bucket.split("-")[-1])
+        m = min((x for x in times if x >= top), default=max(times))
+        est += n * times[m]
+    return est
 
 
 def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
-                 need=("wna16_gemm", "paged_decode", "paged_chunk")):
+                 need=("wna16_gemm", "paged_decode", "paged_chunk"),
+                 ladder=(0, 1, 2, 4), k1_shapes=None):
     """Serve the quickstart trace through ``MorphServeEngine`` with real
     compute under a budget of the weights plus ``kv_blocks`` float32 KV
-    blocks, with the quantize-cold tier off or on. ``counters`` maps each
-    kernel's name to its (wrapper, counter attribute); the counts, K1's
-    launches by M bucket and K2's and K2-q's by table width are set to 0
-    just before the run and read just after. ``k1_ms`` maps each M bucket
-    to the kernel phase's time of the main K1 case at that bucket's M, for
-    an estimate of the run's K1 device time; ``k2`` (``k2_table``) does the
-    same for K2 and K2-q by table width. With the tier off, the kernels in
-    ``need`` must have launched, a layer must have swapped and a prompt
-    must have been chunked."""
+    blocks, with the quantize-cold tier off or on, over the swap levels
+    ``ladder``. ``counters`` maps each kernel's name to its (wrapper,
+    counter attribute); the counts, K1's launches by M bucket and K2's and
+    K2-q's by table width are set to 0 just before the run and read just
+    after. ``k1_ms`` maps each M bucket to the kernel phase's time of the
+    main K1 case at that bucket's M, for an estimate of the run's K1 device
+    time; ``k2`` (``k2_table``) does the same for K2 and K2-q by table
+    width. With the tier off, the kernels in ``need`` must have launched, a
+    layer must have swapped and a prompt must have been chunked. A model
+    with MoE layers also counts the K1 launches of its expert GEMMs apart
+    (by shape and M bucket, estimated from ``k1_shapes``) and the MoE
+    dispatch's host copies, and fails unless a swap quantized an MoE layer
+    and its experts launched K1."""
     from repro_torch.configs import ServingConfig
     from repro_torch.core import tree_bytes
     from repro_torch.engine import (EngineConfig, KVQuantConfig,
@@ -883,6 +938,7 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
     from repro_torch.engine.kv_cache import kv_block_bytes
     from repro_torch.kernels.paged_attention import NB_BUCKETS, paged_decode
     from repro_torch.kernels.wna16_gemm import wna16_gemm
+    from repro_torch.models import moe as moe_mod
 
     cfg, params, order = model
     wb = tree_bytes(params)
@@ -890,7 +946,7 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
     sc = ServingConfig(hbm_budget_bytes=int((wb + kv_blocks * bb) / 0.95)
                        + 2 * bb,
                        kv_block_size=16, max_batch_slots=8, max_seq_len=1024,
-                       swap_levels=(0, 1, 2, 4), mode="performance",
+                       swap_levels=ladder, mode="performance",
                        kv_resize_step_frac=0.25)
     ecfg = EngineConfig(policy="morph", compute="real", use_quant_kernel=True,
                         hw=NVIDIA_H100_SXM,
@@ -925,14 +981,33 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
     wna16_gemm.launches_by_m.clear()
     paged_decode.launches_by_nb.clear()
     paged_decode.quant_launches_by_nb.clear()
+    moe_layers = [i for i, k in enumerate(eng.kinds) if k.endswith("moe")]
+    expert_by = collections.Counter()     # (K, N, M bucket) -> K1 launches
+    matmul = moe_mod._expert_matmul
+
+    def expert_matmul(xs, w, rows, plain=False):
+        before = dict(wna16_gemm.launches_by_m)
+        out = matmul(xs, w, rows, plain)
+        kn = (w.K, w.N) if hasattr(w, "K") else tuple(w.shape[1:])
+        for b, n in wna16_gemm.launches_by_m.items():
+            if n != before.get(b, 0):
+                expert_by[(*kn, b)] += n - before.get(b, 0)
+        return out
+
+    moe_mod._expert_matmul = expert_matmul
+    moe_mod.moe_apply.host_syncs = 0
     gc.collect()      # engines of earlier phases no one holds (their wrapped
     #                   exec methods form reference cycles) leave the peak
     torch.cuda.reset_peak_memory_stats()
     cap0 = eng.pool.capacity
     t0 = time.perf_counter()
-    report = eng.run_trace(trace)
-    torch.cuda.synchronize()
+    try:
+        report = eng.run_trace(trace)
+        torch.cuda.synchronize()
+    finally:
+        moe_mod._expert_matmul = matmul
     wall = time.perf_counter() - t0
+    host_syncs = moe_mod.moe_apply.host_syncs
     launches = {name: getattr(fn, attr)
                 for name, (fn, attr) in counters.items()}
     k1_by_m = dict(wna16_gemm.launches_by_m)
@@ -972,7 +1047,8 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
         f"blocks {peak_cap * per_block / 1e6:.1f} MB (sidecar "
         f"{'allocated' if p.qk is not None else 'never allocated'}); "
         f"torch.cuda.max_memory_allocated over the run "
-        f"{peak_alloc / 1e9:.3f} GB")
+        f"{peak_alloc / 1e9:.3f} GB against the ledger's budget "
+        f"{sc.hbm_budget_bytes / 1e9:.3f} GB")
     log(f"engine wall time {wall:.2f} s for {tokens} generated tokens "
         f"(host clock, synchronized); launches {launches}")
     k1_est = sum(n * k1_ms[b] for b, n in k1_by_m.items())
@@ -981,13 +1057,34 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
         f"estimated K1 device time {k1_est:.1f} ms (an estimate: the "
         f"launches of each bucket x the kernel phase's (4096, 11008) int4 "
         f"time at {K1_BUCKET_M}, whatever the launch's shape)")
-    order = [str(w) for w in NB_BUCKETS] + [f">{NB_BUCKETS[-1]}"]
+    n_expert = sum(expert_by.values())
+    if moe_layers:
+        by_b = collections.Counter()
+        for (_, _, b), n in expert_by.items():
+            by_b[b] += n
+        other = {b: k1_by_m[b] - by_b[b] for b in K1_BUCKET_M
+                 if k1_by_m.get(b, 0) - by_b[b]}
+        shapes = collections.Counter()
+        for (K, N, _), n in expert_by.items():
+            shapes[f"{K}x{N}"] += n
+        log(f"MoE layers {moe_layers} (swap order positions "
+            f"{[order.index(i) for i in moe_layers]}): expert K1 launches "
+            f"{n_expert} of {launches['wna16_gemm']}, by M "
+            f"{ {b: by_b[b] for b in K1_BUCKET_M if b in by_b} }, by shape "
+            f"{dict(shapes)}; estimated expert K1 device time "
+            f"{_k1_expert_estimate(expert_by, k1_shapes):.1f} ms (each "
+            f"launch x the kernel phase's time of its expert shape at the "
+            f"nearest timed M at or above its bucket, of {MOE_M}); the "
+            f"other K1 launches by M {other}, estimated "
+            f"{sum(n * k1_ms[b] for b, n in other.items()):.1f} ms; MoE "
+            f"dispatch host copies {host_syncs} (one an MoE layer a step)")
+    widths = [str(w) for w in NB_BUCKETS] + [f">{NB_BUCKETS[-1]}"]
     for name, by_nb in k2_by_nb.items():
         if not by_nb:
             continue
         est, lost = k2_estimate(by_nb, name, k2)
         log(f"{name} launches by table width "
-            f"{ {b: by_nb[b] for b in order if b in by_nb} }; estimated "
+            f"{ {b: by_nb[b] for b in widths if b in by_nb} }; estimated "
             f"device time {est:.1f} ms, {lost:.1f} ms of it above the bound "
             f"(an estimate: each bucket's launches x the engine-shaped case "
             f"at that width or the next wider one)")
@@ -1012,6 +1109,11 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
             fails.append("no swap level > 0 was reached")
         if chunks <= 0:
             fails.append("no chunked prefill happened")
+        if moe_layers and max(levels) <= min(order.index(i)
+                                             for i in moe_layers):
+            fails.append("no swap quantized an MoE layer")
+        if moe_layers and n_expert <= 0:
+            fails.append("no expert GEMM launched K1")
     for name in need:
         if launches[name] <= 0:
             fails.append(f"kernel {name} was not launched on the main path")
@@ -1025,19 +1127,28 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
 # ---------------------------------------------------------------------------
 # phase 5: decode and chunk steps, kernels vs plain
 # ---------------------------------------------------------------------------
-def parity_phase(torch, cfg, eng, quantized=True):
+def parity_phase(torch, cfg, eng, quantized=True, fp_level=False):
     """One decode step (8 live sequences of ragged length) and one chunk
     step of the full-width model at the deepest swap level (every layer
-    int4, so every matmul of the layers goes through K1), through the
-    kernels and through the plain versions, each from the same pool state;
-    then, with ``quantized``, the same two steps with about half of the
-    live blocks quantized (int8), through K2-q and K3-q (``eng`` is then
-    the tier-on engine, whose attention specs take a bundle). For an MLA
+    int4, so every matmul of the layers, each routed expert's included,
+    goes through K1), through the kernels and through the plain versions,
+    each from the same pool state; with ``fp_level`` the same two steps at
+    level 0 first (bf16 weights: only the attention kernels differ); then,
+    with ``quantized``, the deepest level's two steps with about half of
+    the live blocks quantized (int8), through K2-q and K3-q (``eng`` is
+    then the tier-on engine, whose attention specs take a bundle). ``eng``
+    is an engine or anything with its ``plan`` and ``exec``. For an MLA
     model the chunk step goes through K3-mla and the decode step's
-    attention is plain torch on both sides."""
+    attention is plain torch on both sides. An MoE layer's routing is a
+    discrete choice (the top K of up to 256 close scores), so a rounding
+    difference upstream can flip a token's expert and move its logits by
+    far more than the kernels differ: the plain step takes each MoE
+    layer's routing from the kernel step (``models/moe.route``, call by
+    call), and the tokens whose own choice would differ are counted and
+    logged."""
     from repro_torch.engine.kv_cache import PagedKVPool
+    from repro_torch.models import moe as moe_mod
     level = max(eng.plan.levels)
-    layers = eng.plan.layer_list(level)
     ex = eng.exec
     bs, slots, nb_t, Sp = 16, 8, 16, 112
     lens = torch.tensor([100 - 7 * i for i in range(slots)],
@@ -1049,14 +1160,40 @@ def parity_phase(torch, cfg, eng, quantized=True):
                           device="cuda").reshape(slots, nb_t)
     prompts = torch.randint(0, cfg.vocab, (slots, Sp), generator=gen,
                             device="cuda")
-    ex.prefill_batch(layers, prompts, pool.k, pool.v, tables[:, :Sp // bs],
-                     lens)
+    plain_run = False
+    ex.prefill_batch(eng.plan.layer_list(level), prompts, pool.k, pool.v,
+                     tables[:, :Sp // bs], lens)
+
+    route, routes, flips = moe_mod.route, [], [0, 0]
+
+    def pinned(p, cfg_, xf):
+        mine = route(p, cfg_, xf)
+        if plain_run:
+            rec = routes.pop(0)
+            a, b = (torch.sort(r[0], dim=-1).values for r in (mine, rec))
+            flips[0] += int((a != b).any(-1).sum())
+            flips[1] += a.shape[0]
+            return rec
+        routes.append(mine)
+        return mine
 
     def compare(what, run):
+        nonlocal plain_run
         kvq = pool.kv_quant_bundle()
-        a = run(pool.k.clone(), pool.v.clone(), kvq, False)
-        b = run(pool.k.clone(), pool.v.clone(), kvq, True)
+        flips[:] = [0, 0]
+        moe_mod.route = pinned
+        try:
+            plain_run = False
+            a = run(pool.k.clone(), pool.v.clone(), kvq, False)
+            plain_run = True
+            b = run(pool.k.clone(), pool.v.clone(), kvq, True)
+        finally:
+            moe_mod.route = route
         torch.cuda.synchronize()
+        if flips[1]:
+            log(f"  MoE routing of the plain step pinned to the kernel "
+                f"step's: {flips[0]} of {flips[1]} tokens x MoE layers "
+                f"would have chosen other experts")
         scale = float(b.float().abs().max())
         err = float((a.float() - b.float()).abs().max())
         same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
@@ -1072,15 +1209,18 @@ def parity_phase(torch, cfg, eng, quantized=True):
     pos0 = int(lens[0])
     chunk = torch.randint(0, cfg.vocab, (1, 64), generator=gen, device="cuda")
 
-    def steps(tag):
-        compare(f"decode step ({slots} live slots, level {level}: all "
-                f"layers int4{tag})",
+    def steps(tag, lv=level):
+        layers = eng.plan.layer_list(lv)
+        what = "all layers int4" if lv == level else "bf16 weights"
+        compare(f"decode step ({slots} live slots, level {lv}: {what}{tag})",
                 lambda k, v, kvq, plain: ex.decode(
                     layers, tokens, lens, k, v, tables, kvq, plain=plain))
-        compare(f"chunk step (Cp=64 at pos0={pos0}{tag})",
+        compare(f"chunk step (Cp=64 at pos0={pos0}, level {lv}{tag})",
                 lambda k, v, kvq, plain: ex.prefill_chunk(
                     layers, chunk, pos0, k, v, tables[0], kvq, plain=plain))
 
+    if fp_level:
+        steps("", 0)
     steps("")
     if not quantized:
         return
@@ -1091,6 +1231,41 @@ def parity_phase(torch, cfg, eng, quantized=True):
     pool.quantize_blocks(qids, bits=8)
     live = sum(-(-int(n) // bs) for n in lens)
     steps(f"; {len(qids)} of {live} live blocks int8")
+
+
+def maverick_phase(torch, counters):
+    """Llama-4 Maverick's first two layers at full width (dense, then MoE:
+    128 routed experts of d_ff 8192, top-1, one shared expert; 40 / 8
+    heads), bf16 weights from a seeded generator, its int4 swap plan and a
+    ModelExec (no engine run): ``parity_phase`` at level 0 and at level 2
+    (both layers int4). Returns its kernel launches, which must include K1,
+    K2 and K3."""
+    from repro_torch.configs.archs import LLAMA4_MAVERICK_400B
+    from repro_torch.core import build_swap_plan
+    from repro_torch.engine.model_exec import ModelExec
+    from repro_torch.models import moe as moe_mod
+    cfg, params, order = build_model(
+        torch, LLAMA4_MAVERICK_400B.replace(n_layers=2), profile=False)
+    plan = build_swap_plan(cfg, params, order, bits=4, use_kernel=True)
+    kinds = [k for k, _ in plan.fp_layers]
+    eng = types.SimpleNamespace(plan=plan,
+                                exec=ModelExec(cfg, params, kinds))
+    log(f"Maverick swap plan: levels {plan.levels}, fp bytes "
+        f"{[round(b / 1e9, 3) for b in plan.fp_bytes]} GB, int4 bytes "
+        f"{[round(b / 1e9, 3) for b in plan.q_bytes]} GB; step parity "
+        f"(kernels vs plain, tolerance {LOGIT_TOL} x max|logit|)")
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    moe_mod.moe_apply.host_syncs = 0
+    parity_phase(torch, cfg, eng, quantized=False, fp_level=True)
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+    launches["moe host copies"] = moe_mod.moe_apply.host_syncs
+    missing = [k for k in ("wna16_gemm", "paged_decode", "paged_chunk")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"Maverick phase: {missing} never launched")
+    return launches
 
 
 def main() -> int:
@@ -1138,7 +1313,7 @@ def main() -> int:
     wna16_more_cases(torch, results)
     log("K1's bounds at the mma passes of its launch plan (bf16 "
         f"{BF16_FLOP_S / 1e12:.0f} TFLOP/s, HBM {HBM_BYTES_S / 1e12:.2f} TB/s)")
-    k1_ms = wna16_bounds(results)
+    k1_ms, k1_shapes = wna16_bounds(results)
     decode_cases(torch, timer, results)
     log("K2 at the engine's decode shapes (8 slots, idle ones at length 0, "
         "table widths 8-64)")
@@ -1198,21 +1373,36 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 6-7. DeepSeek-V3's dense MLA layers at full width, depth cut 61 -> 3
+    # 6-7. DeepSeek-V3 at full width, depth cut 61 -> 4: its three dense
+    # MLA layers and its first MoE layer. The ladder's first rung is the
+    # LIS position of the MoE layer, so the first swap quantizes its experts
+    # (any one swap relieves this trace's KV demand)
     t0 = time.perf_counter()
-    mla = build_model(torch, DEEPSEEK_V3_671B.replace(n_layers=3))
-    log(f"MLA engine phase (weights + {MLA_KV_BLOCKS} float32 latent "
-        "blocks; chunks through K3-mla)")
+    mla = build_model(torch, DEEPSEEK_V3_671B.replace(n_layers=4))
+    rung = mla[2].index(3) + 1
+    ladder = tuple(sorted({0, rung, 4}))
+    log(f"DeepSeek-V3 engine phase (weights + {MLA_KV_BLOCKS} float32 "
+        f"latent blocks; swap levels {ladder}; chunks through K3-mla)")
     mla_eng, mla_launches = engine_phase(
         torch, mla, counters, kv_blocks=MLA_KV_BLOCKS, kv_quant=False,
-        k1_ms=k1_ms, k2=k2, need=("wna16_gemm", "paged_chunk_mla"))
+        k1_ms=k1_ms, k2=k2, need=("wna16_gemm", "paged_chunk_mla"),
+        ladder=ladder, k1_shapes=k1_shapes)
     launches["paged_chunk_mla"] = mla_launches["paged_chunk_mla"]
-    log(f"MLA engine phase {time.perf_counter() - t0:.1f} s")
-    log(f"MLA step parity (kernels vs plain, tolerance {LOGIT_TOL} x "
-        "max|logit|)")
+    log(f"DeepSeek-V3 engine phase {time.perf_counter() - t0:.1f} s")
+    log(f"DeepSeek-V3 step parity (kernels vs plain, the MoE layer's "
+        f"experts int4 through K1; tolerance {LOGIT_TOL} x max|logit|)")
     t0 = time.perf_counter()
     parity_phase(torch, mla[0], mla_eng, quantized=False)
-    log(f"MLA step parity {time.perf_counter() - t0:.1f} s")
+    log(f"DeepSeek-V3 step parity {time.perf_counter() - t0:.1f} s")
+    del mla, mla_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. Llama-4 Maverick at full width, depth cut 48 -> 2 (dense, moe):
+    # step parity at the fp and the all-int4 level (K1, and K2 / K3 at G = 5)
+    t0 = time.perf_counter()
+    mav = maverick_phase(torch, counters)
+    log(f"Maverick phase {time.perf_counter() - t0:.1f} s; launches {mav}")
 
     # the representative main-path case of each kernel, errors over all cases
     main_case = {"wna16_gemm": "wna16 M=8 K=4096 N=11008 int4",

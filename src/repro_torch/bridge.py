@@ -6,7 +6,8 @@ result into the port's tensors, so the port never imports ``repro`` or
 jax. A quantized leaf arrives as any object with the JAX ``QTensor``'s
 fields — ``packed``, ``scales``, ``zeros``, ``inv_act`` as numpy arrays and
 ``bits``, ``group``, ``K``, ``N``, ``out_dtype``, ``use_kernel`` — and
-becomes a :class:`~repro_torch.quant.QTensor`. A JAX ``PagedKVPool``'s
+becomes a :class:`~repro_torch.quant.QTensor`, 2-D or a stack of MoE
+experts (3-D ``packed``/``scales``/``zeros``). A JAX ``PagedKVPool``'s
 device state (fp pools, quantized-KV sidecar, ``qbits``) crosses with
 :func:`copy_pool_state`.
 """

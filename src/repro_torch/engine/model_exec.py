@@ -1,5 +1,6 @@
 """Model execution over the paged KV pool + mixed-precision layers (GQA,
-and DeepSeek's MLA over the latent pool).
+and DeepSeek's MLA over the latent pool; a layer's FFN is its MLP or, in
+an MoE layer, ``models/moe.moe_apply`` at no-drop capacity).
 
 This is the worker's data plane. PyTorch runs eagerly, so there is no jit
 cache; what stays from the JAX package is the bucketing that fixes shapes:
@@ -81,12 +82,14 @@ def _layer_kvq(kvq, li):
     return None if kvq is None else tuple(a[li] for a in kvq)
 
 
-def _mlp_residual(p, cfg, x, h, attn_out, plain):
+def _mlp_residual(kind, p, cfg, x, h, attn_out, plain):
+    """The block's FFN half and residuals; an MoE layer runs at no-drop
+    capacity (``lm.ffn_apply``)."""
     if cfg.parallel_block:
         return x + attn_out + L.mlp_apply(p["mlp"], cfg, h, plain=plain)
     x = x + attn_out
     h2 = L.apply_norm(cfg.norm, p["ln2"], x)
-    return x + L.mlp_apply(p["mlp"], cfg, h2, plain=plain)
+    return x + lm.ffn_apply(kind, p, cfg, h2, plain=plain)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +172,7 @@ def paged_decode_step(cfg: ModelConfig, kinds, specs, misc, layer_params,
             attn_out = _paged_gqa_decode(p["attn"], cfg, h, pool_k, pool_v,
                                          i, tables, pos, specs[i],
                                          _layer_kvq(kvq, i), plain)
-        x = _mlp_residual(p, cfg, x, h, attn_out, plain)
+        x = _mlp_residual(kinds[i], p, cfg, x, h, attn_out, plain)
     return lm.unembed(cfg, misc, x)[:, 0]
 
 
@@ -319,7 +322,7 @@ def paged_prefill_chunk(cfg: ModelConfig, kinds, specs, misc, layer_params,
                                             pool_k, pool_v, i, tables, blk,
                                             off, pos0, specs[i],
                                             _layer_kvq(kvq, i), plain)
-        x = _mlp_residual(p, cfg, x, h, attn_out, plain)
+        x = _mlp_residual(kinds[i], p, cfg, x, h, attn_out, plain)
     return lm.unembed(cfg, misc, x)[0]
 
 

@@ -1,17 +1,18 @@
 """Decoder-only LM: the DENSE family (the paper's Llama-2 evaluation
-models) and DeepSeek's MLA layers without experts (``mla_dense``).
+models) and the MOE family (DeepSeek-V3's ``mla_dense`` and ``mla_moe``
+layers, Llama-4 Maverick's alternating ``dense`` and ``moe`` layers).
 
 Parameters keep the JAX package's tree: ``{"embed", "final_norm",
 "lm_head", "segments"}``, where ``segments`` holds one entry per maximal
-run of a layer kind and each entry is a tuple of per-offset param dicts,
-stacked with a leading repeat dim when the run repeats. The serving engine
-works on the **unrolled** per-layer list (``params_to_layer_list``), where
-each layer may independently be dense or quantized.
+run of a layer kind (or alternating pair of kinds) and each entry is a
+tuple of per-offset param dicts, stacked with a leading repeat dim when
+the run repeats. An MoE layer holds ``moe`` (``models/moe.py``) where a
+dense one holds ``mlp``. The serving engine works on the **unrolled**
+per-layer list (``params_to_layer_list``), where each layer may
+independently be dense or quantized.
 
-MoE layers (``moe``, ``mla_moe``) and the other families (SSM/hybrid,
-enc-dec, VLM) are not ported yet; they raise ``NotImplementedError``
-naming ROADMAP queue 1. So DeepSeek-V3 cut to its ``first_k_dense`` dense
-MLA layers runs, and the full model is refused.
+The other families (SSM/hybrid, enc-dec, VLM) are not ported yet; they
+raise ``NotImplementedError`` naming their ROADMAP queue 1 item.
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from repro_torch.configs.base import DENSE, MOE, ModelConfig
+from repro_torch.configs.base import DENSE, ENCDEC, MOE, VLM, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MO
 from repro_torch.quant import qlinear
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -30,6 +32,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 def torch_dtype(name) -> torch.dtype:
     """The torch dtype of a config dtype name ("bfloat16", "float32")."""
     return name if isinstance(name, torch.dtype) else _DTYPES[str(name)]
+
+
+_MOE_KINDS = ("moe", "mla_moe")
 
 
 def _kinds(cfg: ModelConfig) -> List[str]:
@@ -48,16 +53,13 @@ def _kinds(cfg: ModelConfig) -> List[str]:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in (DENSE, MOE):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to torch yet "
-            "— ROADMAP.md queue 1, 'Other model families'")
-    moe = [i for i, k in enumerate(_kinds(cfg)) if k in ("moe", "mla_moe")]
-    if moe:
-        raise NotImplementedError(
-            f"{cfg.name}: layers {moe[0]}..{moe[-1]} are MoE layers, whose "
-            "expert FFN is not ported to torch yet — ROADMAP.md queue 1, "
-            "'MoE'")
+    if cfg.family in (DENSE, MOE):
+        return
+    item = ("8, 'Encoder-decoder and VLM'" if cfg.family in (ENCDEC, VLM)
+            else "7, 'SSM and hybrid'")
+    raise NotImplementedError(
+        f"{cfg.name}: family {cfg.family!r} is not ported to torch yet "
+        f"— ROADMAP.md queue 1, item {item}")
 
 
 # ---------------------------------------------------------------------------
@@ -125,20 +127,25 @@ def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig, dtype):
          "attn": _attn_init(gen, cfg, dtype)}
     if not cfg.parallel_block:
         p["ln2"] = L.norm_init(cfg.norm, cfg.d_model, dtype, gen.device)
-    p["mlp"] = L.mlp_init(gen, cfg, dtype=dtype)
+    if kind in _MOE_KINDS:
+        p["moe"] = MO.moe_init(gen, cfg, dtype)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg, dtype=dtype)
     return p
 
 
 def block_apply(kind: str, p, cfg: ModelConfig, x, *, window: int = 0,
                 moe_cf: float = 1.25):
-    """Full-sequence block. Returns (x, aux); aux is empty without MoE."""
+    """Full-sequence block. Returns (x, aux); aux carries the MoE layer's
+    statistics and is empty without one."""
     h = L.apply_norm(cfg.norm, p["ln1"], x)
     attn_out = _attn_apply(p["attn"], cfg, h, window=window)
     if cfg.parallel_block:
         return x + attn_out + L.mlp_apply(p["mlp"], cfg, h), {}
     x = x + attn_out
     h2 = L.apply_norm(cfg.norm, p["ln2"], x)
-    return x + L.mlp_apply(p["mlp"], cfg, h2), {}
+    y, aux = ffn_apply(kind, p, cfg, h2, moe_cf=moe_cf)
+    return x + y, aux
 
 
 def block_prefill(kind: str, p, cfg: ModelConfig, x, *, window: int = 0,
@@ -158,7 +165,18 @@ def block_prefill(kind: str, p, cfg: ModelConfig, x, *, window: int = 0,
         return x + attn_out + y, payload
     x = x + attn_out
     h2 = L.apply_norm(cfg.norm, p["ln2"], x)
-    return x + L.mlp_apply(p["mlp"], cfg, h2, plain=plain), payload
+    return x + ffn_apply(kind, p, cfg, h2, plain=plain)[0], payload
+
+
+def ffn_apply(kind: str, p, cfg: ModelConfig, h, *, moe_cf: float = -1.0,
+              plain: bool = False):
+    """A block's FFN: the MoE layer at capacity factor ``moe_cf`` (<= 0:
+    no drop, as every serving path of the JAX package runs it), else the
+    MLP. Returns (y, aux); aux is empty without MoE."""
+    if kind in _MOE_KINDS:
+        return MO.moe_apply(p["moe"], cfg, h, capacity_factor=moe_cf,
+                            plain=plain)
+    return L.mlp_apply(p["mlp"], cfg, h, plain=plain), {}
 
 
 # ---------------------------------------------------------------------------
@@ -205,10 +223,11 @@ def unembed(cfg, params, x):
     return qlinear.matmul(x, params["lm_head"])
 
 
-def forward(cfg: ModelConfig, params, tokens):
-    """Full-sequence logits. tokens: (B, S)."""
+def forward(cfg: ModelConfig, params, tokens, *, moe_cf: float = 1.25):
+    """Full-sequence logits. tokens: (B, S). ``moe_cf``: the MoE layers'
+    capacity factor (<= 0: no drop)."""
     return forward_unrolled(cfg, params, params_to_layer_list(cfg, params),
-                            tokens)
+                            tokens, moe_cf=moe_cf)
 
 
 # ---------------------------------------------------------------------------
@@ -248,10 +267,12 @@ def layer_list_to_params(cfg: ModelConfig, layer_list, params) -> Dict:
     return dict(params, segments=seg_params)
 
 
-def forward_unrolled(cfg: ModelConfig, params, layer_list, tokens):
+def forward_unrolled(cfg: ModelConfig, params, layer_list, tokens, *,
+                     moe_cf: float = 1.25):
     x = embed_tokens(cfg, params, tokens)
     for i, (kind, lp) in enumerate(layer_list):
-        x, _ = block_apply(kind, lp, cfg, x, window=layer_window(cfg, i))
+        x, _ = block_apply(kind, lp, cfg, x, window=layer_window(cfg, i),
+                           moe_cf=moe_cf)
     return unembed(cfg, params, x)
 
 

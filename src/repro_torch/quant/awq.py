@@ -64,12 +64,17 @@ def quantize_tree(params, *, bits: int = 4, group: int = 128,
     'a/b/c' to activations). Norm params, biases, scalars and small tensors
     stay in full precision — only the GEMM weights of a decoder layer are
     quantized, as in the paper. Returns a new dict; leaves that stay are
-    shared, not copied."""
+    shared, not copied. Stacked MoE experts (E, K, N) become one stacked
+    QTensor, each expert quantized by RTN."""
     if isinstance(params, dict):
-        return {k: quantize_tree(v, bits=bits, group=group,
-                                 min_size=min_size, calib_acts=calib_acts,
-                                 use_kernel=use_kernel,
-                                 _prefix=f"{_prefix}{k}/")
+        # An MoE router stays in full precision at any size: it scores
+        # tokens and is not one of the layer's GEMM weights, which are all
+        # the paper quantizes. The JAX package quantizes it once
+        # D·E >= min_size, and its moe_apply then fails on the QTensor.
+        return {k: v if k == "router" else
+                quantize_tree(v, bits=bits, group=group, min_size=min_size,
+                              calib_acts=calib_acts, use_kernel=use_kernel,
+                              _prefix=f"{_prefix}{k}/")
                 for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return type(params)(

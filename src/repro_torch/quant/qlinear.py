@@ -18,7 +18,9 @@ from repro_torch.quant import pack as packing
 
 
 class QTensor:
-    """Packed, group-quantized weight of logical shape (K, N)."""
+    """Packed, group-quantized weight of logical shape (K, N), or a stack
+    of E such weights (MoE experts: ``packed``/``scales``/``zeros`` with a
+    leading E; ``nbytes`` and ``dequantize`` hold for either)."""
 
     def __init__(self, packed, scales, zeros, *, bits: int, group: int,
                  K: int, N: int, out_dtype=torch.float32, inv_act=None,
@@ -51,6 +53,19 @@ class QTensor:
                        group=self.group, K=self.K, N=self.N,
                        out_dtype=self.out_dtype, inv_act=self.inv_act,
                        use_kernel=use_kernel)
+
+    def expert(self, e: int) -> "QTensor":
+        """2-D view of expert ``e`` of a stacked (E, K, N) QTensor: of a
+        contiguous stack (``quantize_tree``, the bridge), a contiguous view
+        in the layout the wNa16 kernel reads."""
+        if self.packed.ndim != 3:
+            raise ValueError("expert() needs a stacked QTensor")
+        return QTensor(self.packed[e], self.scales[e], self.zeros[e],
+                       bits=self.bits, group=self.group, K=self.K, N=self.N,
+                       out_dtype=self.out_dtype,
+                       inv_act=None if self.inv_act is None
+                       else self.inv_act[e],
+                       use_kernel=self.use_kernel)
 
     def dequantize(self, dtype=None):
         q = packing.unpack(self.packed, self.bits, self.K)

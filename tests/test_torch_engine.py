@@ -105,16 +105,30 @@ def test_real_engine_matches_jax():
     assert dataclasses.asdict(rj) == dataclasses.asdict(rt)
 
 
-def test_engine_refuses_what_is_not_ported():
-    """A config with MoE layers (DeepSeek-V3 past its dense MLA layers: the
-    expert FFN is not ported) raises at the engine, naming the MoE item of
-    ROADMAP queue 1, while its latent pool alone is built; and params on
-    another device than the engine's raise instead of moving."""
+def test_engine_admits_moe_and_refuses_what_is_not_ported():
+    """Configs with MoE layers (DeepSeek-V3 past its dense MLA layers,
+    Llama-4 Maverick), reduced and at full width, build an engine with the
+    JAX package's layer kinds; the families not ported yet (SSM, hybrid,
+    enc-dec, VLM) raise at the engine, each naming its ROADMAP queue 1
+    item; and params on another device than the engine's raise instead of
+    moving."""
+    from repro.configs import get_config, reduced
+    from repro.models import lm as jlm
+    from repro_torch.configs.archs import (HYMBA_1P5B, INTERNVL2_1B,
+                                           LLAMA4_MAVERICK_400B,
+                                           MAMBA2_780M, WHISPER_SMALL)
     params, _, tparams = llama_params()
     sc = serving(params, TServingConfig)
     mla_moe = t_reduced(DEEPSEEK_V3_671B)         # mla_dense, mla_moe x 3
-    for cfg in (mla_moe, DEEPSEEK_V3_671B):
-        with pytest.raises(NotImplementedError, match="queue 1, 'MoE'"):
+    for cfg in (DEEPSEEK_V3_671B, LLAMA4_MAVERICK_400B):
+        jcfg_ = get_config(cfg.name)
+        for t, j in ((cfg, jcfg_), (t_reduced(cfg), reduced(jcfg_))):
+            eng = TEngine(t, None, sc, TEC(compute="sim"), device="cpu")
+            assert list(eng.kinds) == jlm.layer_kinds(j)
+            assert any(k.endswith("moe") for k in eng.kinds)
+    for cfg, item in ((MAMBA2_780M, "item 7"), (HYMBA_1P5B, "item 7"),
+                      (WHISPER_SMALL, "item 8"), (INTERNVL2_1B, "item 8")):
+        with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
             TEngine(cfg, None, sc, TEC(compute="sim"), device="cpu")
     pool = PagedKVPool(mla_moe, 8, 16, device="cpu")
     assert tuple(pool.k.shape) == (4, 8, 16, 1, 48)

@@ -121,14 +121,35 @@ def _scale():
     return (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
 
 
-def test_family_check_admits_dense_mla_and_refuses_moe():
+def test_family_check_admits_mla_and_moe_and_refuses_other_families():
+    """The dense MLA cut, DeepSeek-V3 with its MoE layers (full width and
+    reduced) and Llama-4 Maverick have the JAX package's layer kinds; SSM,
+    hybrid, enc-dec and VLM configs raise, naming their queue 1 item."""
+    from repro.configs.archs import LLAMA4_MAVERICK_400B as J_MAV
+    from repro_torch.configs.archs import (HYMBA_1P5B, INTERNVL2_1B,
+                                           LLAMA4_MAVERICK_400B,
+                                           MAMBA2_780M, WHISPER_SMALL)
     assert tlm.layer_kinds(tcfg()) == jlm.layer_kinds(jcfg()) == \
         ["mla_dense"] * 3
     assert tlm.layer_kinds(T_DSV3.replace(n_layers=3)) == ["mla_dense"] * 3
-    with pytest.raises(NotImplementedError, match="queue 1, 'MoE'"):
-        tlm.layer_kinds(T_DSV3)
-    with pytest.raises(NotImplementedError, match="queue 1, 'MoE'"):
-        tlm.init_params(t_reduced(T_DSV3), torch.Generator())
+    assert tlm.layer_kinds(T_DSV3.replace(n_layers=4)) == \
+        ["mla_dense"] * 3 + ["mla_moe"]
+    assert tlm.layer_kinds(T_DSV3) == jlm.layer_kinds(J_DSV3)
+    assert tlm.layer_kinds(t_reduced(T_DSV3)) == \
+        jlm.layer_kinds(j_reduced(J_DSV3))
+    assert tlm.layer_kinds(LLAMA4_MAVERICK_400B) == jlm.layer_kinds(J_MAV)
+    assert tlm.layer_kinds(LLAMA4_MAVERICK_400B.replace(n_layers=2)) == \
+        ["dense", "moe"]
+    p = tlm.init_params(t_reduced(T_DSV3), torch.Generator())
+    assert "moe" in p["segments"][1][0] and "mlp" not in p["segments"][1][0]
+    for cfg, item in ((MAMBA2_780M, "item 7, 'SSM and hybrid'"),
+                      (HYMBA_1P5B, "item 7, 'SSM and hybrid'"),
+                      (WHISPER_SMALL, "item 8, 'Encoder-decoder and VLM'"),
+                      (INTERNVL2_1B, "item 8, 'Encoder-decoder and VLM'")):
+        with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
+            tlm.layer_kinds(cfg)
+        with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
+            tlm.init_params(t_reduced(cfg), torch.Generator())
 
 
 def test_init_params_tree_matches_jax_structure():
