@@ -6,21 +6,26 @@
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``src/repro_torch/kernels/build`` and runs eight phases, each of which
+``src/repro_torch/kernels/build`` and runs twelve phases, each of which
 raises on failure:
 
 1. device: the card's name and power limit, torch/CUDA versions, and the
    kernels' build time;
 2. kernels: the launch planner (``kernels/plan.py``) against every built
    chunk instantiation, then every hand-written kernel (wNa16 GEMM at
-   the dense models' matmul shapes and at the routed experts' of
-   DeepSeek-V3 and Llama-4 Maverick (M 1, 8, 64), its main case at one M
+   the dense models' matmul shapes, at the routed experts' of
+   DeepSeek-V3 and Llama-4 Maverick (M 1, 8, 64) and at the SSM and
+   hybrid layers' of Mamba-2 and Hymba (M 1, 8, 256; N = 6448 and 6482
+   among them, whose rows are no multiple of 64 or, for 6482, of 16
+   bytes), its main case at one M
    of each
-   ``launches_by_m`` bucket, and held at odd M, with inv_act and a bias,
+   M bucket of its launch count, and held at odd M, with inv_act and a bias,
    float32 and float16 x and groups of 64 and 32; its bound at the mma
-   passes of its launch plan; paged decode at G = 1, 4, 5, 6 and 12 and at
-   the engine's own decode shapes (8 slots, idle ones at length 0, table
-   widths 8 to 64), each with its launch plan's splits and CTAs; chunk
+   passes of its launch plan; paged decode at G = 1, 4, 5, 6 and 12, at
+   Hymba's heads (G = 5 of 64, windows of 1024 and 0) and at the engine's
+   own decode shapes (8 slots, idle ones at length 0, table widths 8 to
+   64; Llama-2-7B's heads and Hymba's), each with its launch plan's splits
+   and CTAs; chunk
    prefill at G = 1, 4, 5, 6, 7 and 12 and head widths 64, 128 and 256, and
    the decode and chunk walks' quantized-KV lane over pools quantized by
    ``PagedKVPool.quantize_blocks``, int8 and int4) against its plain
@@ -32,9 +37,9 @@ raises on failure:
    decode walk's quantized lane at the bytes its per-block skip reads, the
    earlier 5-byte yardstick logged once); a zeroed quantized-KV
    sidecar must give the no-quant kernel's output exactly;
-   each engine phase below logs K1's launches by M bucket and K2's and
-   K2-q's by table width, with estimates of their device time from these
-   timings;
+   each engine phase below logs K1's launches by shape and M bucket and
+   K2's and K2-q's by table width, with estimates of their device time
+   from these timings (each K1 launch priced by its own shape);
 3. engine: the quickstart path — LIS profile, int4 swap plan, the
    token-budgeted ``MorphServeEngine`` serving a bursty trace with real
    compute — on Llama-2-7B at full width (d 4096, 32 heads, d_ff 11008,
@@ -66,7 +71,25 @@ raises on failure:
    MoE layer of 128 routed experts of d_ff 8192, top-1, one shared
    expert; 40 / 8 heads of 128, vocab 202048), its int4 swap plan, and a
    decode step and a chunk step at the fp and at the all-int4 level,
-   kernels (K1, and K2 / K3 at G = 5) against plain versions.
+   kernels (K1, and K2 / K3 at G = 5) against plain versions;
+9. Hymba engine: Hymba 1.5B at full width and depth (32 ``hybrid``
+   layers: d 1600, 25 / 5 heads of 64 beside a Mamba-2 mixer of 50 SSD
+   heads, d_state 16; a window of 1024 but on layers 0, 15 and 31; d_ff
+   5504, vocab 32001), bf16 weights from a seeded generator, served
+   through the same path and trace under a budget of the weights + 8
+   float32 KV blocks, with the per-slot SSM state (7.8 MB a slot, which
+   the ledger does not book, as in the JAX engine); prefill is
+   whole-prompt at the prompt's length, so K3 is not on this path;
+10. Hymba step parity: a whole-prompt prefill and a decode step at the
+   fp and the deepest level, kernels against plain versions (logits), and
+   the SSM state after the step, layer by layer, against a float32
+   witness (the plain versions on float32 copies of the weights);
+11. Mamba-2 engine: Mamba-2 780M at full width (d 1536, 48 SSD heads of
+   64, d_state 128, vocab 50280) cut to ``MAMBA_LAYERS`` of its 48
+   ``mamba`` layers, the same trace at ``MAMBA_RPS`` requests a second
+   (no KV blocks: only queue delay trips the controller), every swapped
+   matmul through K1;
+12. Mamba-2 step parity, as in 10, on all 48 layers.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It exits non-zero, with no ``ok`` line, when there is no CUDA device, when
@@ -103,12 +126,27 @@ TOL = {"bfloat16": (1e-2, 1e-3), "float16": (2e-3, 1e-4),
 # full-step logits: bf16 activations through 8 layers, where a one-ulp
 # rounding flip at any kernel output propagates through the residual stream
 LOGIT_TOL = 5e-2          # relative to max|plain logits|
+# an SSM state after a step, relative to max|plain state|: how much farther
+# the kernel route's state may lie from the float32 witness than the bf16
+# plain route's does. It is float32, but its inputs come out of the same
+# bf16 layers as the logits, so the same one-ulp flips reach it, and they
+# grow with depth in either bf16 route (ssm_parity_phase)
+STATE_TOL = LOGIT_TOL
 
 REPS = 15
 # the DeepSeek-V3 engine phase's budget: the weights plus this many float32
 # latent blocks (4 layers x 16 x 576 x 4 B = 147.5 KB each)
 MLA_KV_BLOCKS = 8
 SLEEP_CYCLES = 2_000_000      # ~1 ms at the H100's clock: covers the enqueue
+# the Mamba-2 engine phase: its depth cut (48 -> 4 layers) and its request
+# rate, the lowest integer base_rps of the trace at which a swap lands on
+# the virtual clock at that depth (H100 cost profile; ``swap_rate.py``, on
+# the CPU: 270 swaps nothing, 271 swaps). A deeper model swaps at a lower
+# rate but costs more a step: 8 layers swap at 237 requests a second and
+# the phase took 194 s on one H100, 48 layers at 107 and 694 s; 4 layers
+# take about 120 s. The step parity phase runs all 48 layers.
+MAMBA_LAYERS = 4
+MAMBA_RPS = 271.0
 
 
 def log(msg: str) -> None:
@@ -174,7 +212,7 @@ def check_close(name, got, want):
 # columns are the rope key), w_ukv (whole-prompt prefill's latent
 # expansion), wo, MLP up/gate, down; the routed experts of both MoE models
 # (``MOE_KN``). The main case, (4096, 11008) int4, is timed at one M of
-# each ``launches_by_m`` bucket (``K1_BUCKET_M``).
+# each M bucket of ``launches_by_shape`` (``K1_BUCKET_M``).
 LLAMA_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
 DEEPSEEK_KN = ((7168, 1536), (1536, 24576), (7168, 576), (512, 32768),
                (16384, 7168), (7168, 18432), (18432, 7168))
@@ -184,6 +222,18 @@ DEEPSEEK_KN = ((7168, 1536), (1536, 24576), (7168, 576), (512, 32768),
 # decode and chunk steps
 MOE_KN = ((7168, 2048), (2048, 7168), (5120, 8192), (8192, 5120))
 MOE_M = (1, 8, 64)
+# the matmuls of a swapped SSM or hybrid layer, (K, N, group): Mamba-2
+# 780M's in_proj (1536 -> 2 x 3072 + 2 x 128 + 48 = 6448) and out_proj;
+# Hymba 1.5B's in_proj (1600 -> 2 x 3200 + 2 x 16 + 50 = 6482: its packed
+# and scale rows are not 16-byte multiples) and out_proj, its attention's
+# wq / wo (1600, 1600) and wk / wv (1600, 320), its MLP up / gate and
+# down. K = 1600 takes group 64 (the int4 variant halves 128 until it
+# divides K)
+SSM_KN = ((1536, 6448, 128), (3072, 1536, 128), (1600, 6482, 64),
+          (3200, 1600, 128), (1600, 1600, 64), (1600, 320, 64),
+          (1600, 5504, 64), (5504, 1600, 128))
+SSM_M = (1, 8, 256)
+SSM_WNA16_CASES = [(K, N, 4, SSM_M, SSM_M) for K, N, _ in SSM_KN]
 K1_BUCKET_M = {"1": 1, "2-8": 8, "9-16": 16, "17-64": 64, "65-256": 256,
                "257-512": 512, ">512": 1024}
 K1_MAIN = (4096, 11008, 4)
@@ -289,10 +339,10 @@ def wna16_bounds(results):
     """Each timed K1 case's least time on this card, in ms, as its
     ``bound_ms``: the larger of its bytes over the HBM rate and its FLOPs
     times the mma passes its launch plan takes over the bf16 tensor-core
-    rate. Returns {M bucket: ms} of the main case and {(K, N): {M: ms}} of
-    the int4 cases, for the engine phases' estimates of K1's device time."""
-    from repro_torch.kernels.wna16_gemm import m_bucket, plan
-    by_m, by_shape = {}, collections.defaultdict(dict)
+    rate. Returns {(K, N): {M: ms}} of the int4 cases, for the engine
+    phases' estimates of K1's device time."""
+    from repro_torch.kernels.wna16_gemm import plan
+    by_shape = collections.defaultdict(dict)
     for r in results:
         w = r.get("k1_work")
         if w is None:
@@ -307,11 +357,9 @@ def wna16_bounds(results):
             f"{p.passes} pass, tile {p.bm} rows, {p.splits} splits), kernel "
             f"{r['ms'] / r['bound_ms']:.1f}x it, matmul "
             f"{r['library_ms'] / r['bound_ms']:.1f}x")
-        if (w["K"], w["N"], w["bits"]) == K1_MAIN:
-            by_m[m_bucket(w["M"])] = r["ms"]
         if w["bits"] == 4:
             by_shape[w["K"], w["N"]][w["M"]] = r["ms"]
-    return by_m, by_shape
+    return by_shape
 
 
 def _pool_case(torch, gen, B, lens, KVH, Dh, bs, extra_blocks=0, nb=None):
@@ -456,6 +504,15 @@ ENGINE_DECODE_CASES = [(8, (118, 97, 77, 0, 53, 31, 0, 12)),
                        (32, (511, 431, 300, 0, 207, 160, 0, 33)),
                        (64, (559, 529, 411, 0, 250, 130, 0, 48))]
 ENGINE_DECODE_Q_CASES = ENGINE_DECODE_CASES[2:]
+# Hymba 1.5B's decode walk: 25 query heads over 5 kv heads (G = 5) of 64,
+# a sliding window of 1024 on 29 of its 32 layers (it bites past 1024
+# tokens: the context here reaches 2048) and full attention on the rest;
+# then at the engine's own shapes (the Llama cases' slots, lengths and
+# table widths), the window too wide to bite at the phase's lengths
+HYMBA_HEADS = (25, 5, 64)
+HYMBA_DECODE_CASES = [(8, 2048, 25, 5, 1024, 0.0, True),
+                      (8, 2048, 25, 5, 1024, 0.0, False),
+                      (8, 2048, 25, 5, 0, 0.0, True)]
 
 
 def _decode_plan_note(B, H, KVH, Dh, bs, nb_t, window):
@@ -474,9 +531,10 @@ def _decode_plan_note(B, H, KVH, Dh, bs, nb_t, window):
 
 
 def _decode_case(torch, gen, timer, results, name, B, lens, nb, H, KVH,
-                 window, softcap, fused, bits):
+                 window, softcap, fused, bits, Dh=128):
     """One K2 (``bits=None``) or K2-q case: B sequences of ``lens`` over a
-    table ``nb`` wide (None: the power of two above the longest plus one);
+    table ``nb`` wide (None: the power of two above the longest plus one),
+    heads of ``Dh``;
     with ``bits`` the pools are quantized through the pool's codec, every
     block except each sequence's tail, after a zeroed sidecar is shown to
     give the plain lane's output exactly. Held to the plain version, timed
@@ -486,7 +544,7 @@ def _decode_case(torch, gen, timer, results, name, B, lens, nb, H, KVH,
     zero)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_decode
-    bs, Dh = 16, 128
+    bs = 16
     G = H // KVH
     kernel = "paged_decode" if bits is None else "paged_decode_q"
     lens = torch.tensor(list(lens), dtype=torch.int32, device="cuda")
@@ -588,34 +646,39 @@ def _decode_case(torch, gen, timer, results, name, B, lens, nb, H, KVH,
         + ("" if noop is None else f"; no-op bundle diff {noop}") + note)
 
 
-def decode_cases(torch, timer, results, cases=DECODE_CASES, bits=None):
+def decode_cases(torch, timer, results, cases=DECODE_CASES, bits=None,
+                 Dh=128):
     """K2 (``bits=None``) or, with ``bits``, K2-q (``_decode_case``) at
-    ``cases``, ragged lengths from each case's context."""
+    ``cases``, ragged lengths from each case's context, heads of ``Dh``."""
     gen = torch.Generator(device="cuda").manual_seed(12 if bits is None
                                                      else 40 + bits)
     for B, ctx, H, KVH, window, softcap, fused in cases:
         lens = [ctx - (b * 5) % max(ctx // 2, 1) for b in range(B)]
-        name = (f"decode B={B} ctx={ctx} H={H} KVH={KVH} w={window} "
-                f"cap={softcap} fused={fused}"
+        name = (f"decode B={B} ctx={ctx} H={H} KVH={KVH}"
+                + ("" if Dh == 128 else f" Dh={Dh}")
+                + f" w={window} cap={softcap} fused={fused}"
                 + ("" if bits is None else f" int{bits}"))
         _decode_case(torch, gen, timer, results, name, B, lens, None, H, KVH,
-                     window, softcap, fused, bits)
+                     window, softcap, fused, bits, Dh=Dh)
 
 
 def engine_decode_cases(torch, timer, results, cases=ENGINE_DECODE_CASES,
-                        bits=None):
+                        bits=None, heads=(32, 32, 128),
+                        prefix="decode engine"):
     """K2 or K2-q at the engine's own decode shapes (``ENGINE_DECODE_CASES``:
-    8 slots, idle ones at length 0, the engine's table widths). The first
-    K2-q case also logs its bound at the earlier yardstick of 5 bytes an
-    element (the fp slot and the int8 mirror of every visited element),
-    which the lane no longer reads."""
+    8 slots, idle ones at length 0, the engine's table widths), at
+    ``heads`` (H, KVH, Dh; Llama-2-7B's by default), named from
+    ``prefix``. The first K2-q case also logs its bound at the earlier
+    yardstick of 5 bytes an element (the fp slot and the int8 mirror of
+    every visited element), which the lane no longer reads."""
     gen = torch.Generator(device="cuda").manual_seed(16 if bits is None
                                                      else 60 + bits)
+    H, KVH, Dh = heads
     for nb, lens in cases:
-        name = (f"decode engine nb={nb} lens={'/'.join(map(str, lens))}"
+        name = (f"{prefix} nb={nb} lens={'/'.join(map(str, lens))}"
                 + ("" if bits is None else f" int{bits}"))
         _decode_case(torch, gen, timer, results, name, len(lens), lens, nb,
-                     32, 32, 0, 0.0, True, bits)
+                     H, KVH, 0, 0.0, True, bits, Dh=Dh)
     if bits is not None and cases:
         first = next(x for x in results if x["kernel"] == "paged_decode_q"
                      and x["case"].startswith("decode engine"))
@@ -624,11 +687,12 @@ def engine_decode_cases(torch, timer, results, cases=ENGINE_DECODE_CASES,
             f"{first['bound_ms']:.4f} ms at the bytes the skip reads)")
 
 
-def k2_table(results):
+def k2_table(results, prefix="decode engine"):
     """{(kernel, table width): (ms, bound ms)} of the engine-shaped K2 and
-    K2-q cases, for the engine phases' estimate of their device time."""
+    K2-q cases named from ``prefix``, for the engine phases' estimate of
+    their device time."""
     return {(r["kernel"], r["nb_t"]): (r["ms"], r["bound_ms"])
-            for r in results if r["case"].startswith("decode engine")}
+            for r in results if r["case"].startswith(prefix + " ")}
 
 
 def k2_estimate(by_nb, kernel, table):
@@ -898,38 +962,54 @@ def build_model(torch, cfg, profile=True):
     return cfg, params, order
 
 
-def _k1_expert_estimate(expert_by, k1_shapes):
-    """Estimated device time, in ms, of the expert launches ``expert_by``
+def _k1_estimate(by_shape, k1_shapes):
+    """Estimated device time, in ms, of the K1 launches ``by_shape``
     ({(K, N, M bucket): launches}): each launch x the kernel phase's time
-    of its expert shape at the smallest timed M at or above its bucket's
-    top (the largest timed M above that)."""
-    est = 0.0
-    for (K, N, bucket), n in expert_by.items():
-        times = k1_shapes[K, N]
+    of its own shape at the smallest timed M at or above its bucket's top
+    (the largest timed M below that). Returns (ms, {(K, N): launches} of
+    the shapes the kernel phase did not time)."""
+    est, untimed = 0.0, collections.Counter()
+    for (K, N, bucket), n in by_shape.items():
+        times = k1_shapes.get((K, N))
+        if not times:
+            untimed[K, N] += n
+            continue
         top = 10 ** 9 if bucket.startswith(">") else int(bucket.split("-")[-1])
         m = min((x for x in times if x >= top), default=max(times))
         est += n * times[m]
-    return est
+    return est, dict(untimed)
 
 
-def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
-                 need=("wna16_gemm", "paged_decode", "paged_chunk"),
-                 ladder=(0, 1, 2, 4), k1_shapes=None):
-    """Serve the quickstart trace through ``MorphServeEngine`` with real
-    compute under a budget of the weights plus ``kv_blocks`` float32 KV
-    blocks, with the quantize-cold tier off or on, over the swap levels
-    ``ladder``. ``counters`` maps each kernel's name to its (wrapper,
-    counter attribute); the counts, K1's launches by M bucket and K2's and
-    K2-q's by table width are set to 0 just before the run and read just
-    after. ``k1_ms`` maps each M bucket to the kernel phase's time of the
-    main K1 case at that bucket's M, for an estimate of the run's K1 device
-    time; ``k2`` (``k2_table``) does the same for K2 and K2-q by table
-    width. With the tier off, the kernels in ``need`` must have launched, a
-    layer must have swapped and a prompt must have been chunked. A model
-    with MoE layers also counts the K1 launches of its expert GEMMs apart
-    (by shape and M bucket, estimated from ``k1_shapes``) and the MoE
-    dispatch's host copies, and fails unless a swap quantized an MoE layer
-    and its experts launched K1."""
+def _by_bucket(by_shape):
+    """{M bucket: launches} of a {(K, N, M bucket): launches} count, in
+    bucket order."""
+    out = collections.Counter()
+    for (_, _, b), n in by_shape.items():
+        out[b] += n
+    return {b: out[b] for b in K1_BUCKET_M if out[b]}
+
+
+def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_shapes,
+                 k2, need=("wna16_gemm", "paged_decode", "paged_chunk"),
+                 ladder=(0, 1, 2, 4), rps=2.0):
+    """Serve the quickstart trace (at ``rps`` requests a second) through
+    ``MorphServeEngine`` with real compute under a budget of the weights
+    plus ``kv_blocks`` float32 KV blocks, with the quantize-cold tier off
+    or on, over the swap levels ``ladder``. ``counters`` maps each
+    kernel's name to its (wrapper, counter attribute); the counts, K1's
+    launches by shape and M bucket and K2's and K2-q's by table width are
+    set to 0 just before the run and read just after. ``k1_shapes``
+    ({(K, N): {M: ms}}, ``wna16_bounds``) prices each K1 launch by its own
+    shape for an estimate of the run's K1 device time; ``k2``
+    (``k2_table``) does the same for K2 and K2-q by table width. With the
+    tier off, the kernels in ``need`` must have launched, a layer must
+    have swapped and, where the family chunks, a prompt must have been
+    chunked. A model with MoE layers also counts the K1 launches of its
+    expert GEMMs apart and the MoE dispatch's host copies, and fails
+    unless a swap quantized an MoE layer and its experts launched K1. An
+    SSM or hybrid model logs its per-slot state bytes and its whole-prompt
+    prefills, those whose SSD scan chunk fell below 16 apart, with their
+    synchronized wall time."""
     from repro_torch.configs import ServingConfig
     from repro_torch.core import tree_bytes
     from repro_torch.engine import (EngineConfig, KVQuantConfig,
@@ -939,12 +1019,15 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
     from repro_torch.kernels.paged_attention import NB_BUCKETS, paged_decode
     from repro_torch.kernels.wna16_gemm import wna16_gemm
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models.mamba import ssd_chunk_len
 
     cfg, params, order = model
     wb = tree_bytes(params)
     bb = kv_block_bytes(cfg, 16, 4)
+    # two blocks' slack (two bytes for an SSM model, whose block is 0 bytes:
+    # the ledger books one block, of one byte)
     sc = ServingConfig(hbm_budget_bytes=int((wb + kv_blocks * bb) / 0.95)
-                       + 2 * bb,
+                       + 2 * max(bb, 1),
                        kv_block_size=16, max_batch_slots=8, max_seq_len=1024,
                        swap_levels=ladder, mode="performance",
                        kv_resize_step_frac=0.25)
@@ -963,8 +1046,11 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
 
     bad_logits = []
 
+    calls = collections.Counter()
+
     def checked(fn, what):
         def run(*a, **kw):
+            calls[what] += 1
             out = fn(*a, **kw)
             if not bool(torch.isfinite(out).all()):
                 bad_logits.append(what)
@@ -973,12 +1059,25 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
 
     for what in ("decode", "prefill", "prefill_batch", "prefill_chunk"):
         setattr(eng.exec, what, checked(getattr(eng.exec, what), what))
+    prefills = []                   # (prompt length, scan chunk, wall s)
+    if eng.state_pool is not None:
+        prefill_real = eng._prefill_real
 
-    trace = azure_like(duration_s=4.0, base_rps=2.0, seed=3, prompt_mean=160,
+        def timed_prefill(r):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = prefill_real(r)
+            torch.cuda.synchronize()
+            prefills.append((r.prompt_len, ssd_chunk_len(cfg, r.prompt_len),
+                             time.perf_counter() - t))
+            return out
+        eng._prefill_real = timed_prefill
+
+    trace = azure_like(duration_s=4.0, base_rps=rps, seed=3, prompt_mean=160,
                        gen_mean=24, prompt_max=512, gen_max=48)
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
-    wna16_gemm.launches_by_m.clear()
+    wna16_gemm.launches_by_shape.clear()
     paged_decode.launches_by_nb.clear()
     paged_decode.quant_launches_by_nb.clear()
     moe_layers = [i for i, k in enumerate(eng.kinds) if k.endswith("moe")]
@@ -986,12 +1085,11 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
     matmul = moe_mod._expert_matmul
 
     def expert_matmul(xs, w, rows, plain=False):
-        before = dict(wna16_gemm.launches_by_m)
+        before = dict(wna16_gemm.launches_by_shape)
         out = matmul(xs, w, rows, plain)
-        kn = (w.K, w.N) if hasattr(w, "K") else tuple(w.shape[1:])
-        for b, n in wna16_gemm.launches_by_m.items():
-            if n != before.get(b, 0):
-                expert_by[(*kn, b)] += n - before.get(b, 0)
+        for key, n in wna16_gemm.launches_by_shape.items():
+            if n != before.get(key, 0):
+                expert_by[key] += n - before.get(key, 0)
         return out
 
     moe_mod._expert_matmul = expert_matmul
@@ -1010,7 +1108,7 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
     host_syncs = moe_mod.moe_apply.host_syncs
     launches = {name: getattr(fn, attr)
                 for name, (fn, attr) in counters.items()}
-    k1_by_m = dict(wna16_gemm.launches_by_m)
+    k1_by = dict(wna16_gemm.launches_by_shape)
     k2_by_nb = {"paged_decode": dict(paged_decode.launches_by_nb),
                 "paged_decode_q": dict(paged_decode.quant_launches_by_nb)}
     peak_alloc = torch.cuda.max_memory_allocated()
@@ -1042,42 +1140,56 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
     log(f"kv-quant events {len(eng.kv_quant_events)} (blocks: "
         f"{dict(events)}), peak quantized blocks "
         f"{max(t.kv_quant_blocks for t in hist)}, watchdog trips "
-        f"{eng.watchdog_trips}")
+        f"{dict(collections.Counter(k for _, k, _ in eng.watchdog_trips))}")
     log(f"device bytes: pool + sidecar at the peak capacity of {peak_cap} "
         f"blocks {peak_cap * per_block / 1e6:.1f} MB (sidecar "
         f"{'allocated' if p.qk is not None else 'never allocated'}); "
         f"torch.cuda.max_memory_allocated over the run "
         f"{peak_alloc / 1e9:.3f} GB against the ledger's budget "
         f"{sc.hbm_budget_bytes / 1e9:.3f} GB")
+    if eng.state_pool is not None:
+        per_slot = eng.state_pool.state_bytes_per_slot()
+        short = [x for x in prefills if x[1] < 16]
+        log(f"SSM state: {per_slot / 1e6:.1f} MB a slot over "
+            f"{len(eng.state_pool.layers)} layers, "
+            f"{per_slot * eng.slots / 1e6:.1f} MB over {eng.slots} slots "
+            f"(float32; not booked by the ledger, as in the JAX engine)")
+        k3 = ": K3 is not on this path" if "hybrid" in eng.kinds else ""
+        log(f"whole-prompt prefills {len(prefills)} (no chunking for this "
+            f"family{k3}), {sum(x[2] for x in prefills):.2f} s wall "
+            f"(synchronized); "
+            f"{len(short)} of them scanned in chunks below 16 (lengths "
+            f"past the 128-token chunk that 16 does not divide), "
+            f"{sum(x[2] for x in short):.2f} s of that wall")
     log(f"engine wall time {wall:.2f} s for {tokens} generated tokens "
-        f"(host clock, synchronized); launches {launches}")
-    k1_est = sum(n * k1_ms[b] for b, n in k1_by_m.items())
-    ordered = {b: k1_by_m[b] for b in K1_BUCKET_M if b in k1_by_m}
-    log(f"K1 launches by M {ordered}; "
-        f"estimated K1 device time {k1_est:.1f} ms (an estimate: the "
-        f"launches of each bucket x the kernel phase's (4096, 11008) int4 "
-        f"time at {K1_BUCKET_M}, whatever the launch's shape)")
+        f"(host clock, synchronized); real-compute calls {dict(calls)}; "
+        f"launches {launches}")
+    k1_est, untimed = _k1_estimate(k1_by, k1_shapes)
+    shapes = collections.Counter()
+    for (K, N, _), n in k1_by.items():
+        shapes[f"{K}x{N}"] += n
+    log(f"K1 launches by M {_by_bucket(k1_by)}, by shape {dict(shapes)}; "
+        f"estimated K1 device time {k1_est:.1f} ms (an estimate: each "
+        f"launch x the kernel phase's time of its own shape at the nearest "
+        f"timed M at or above its bucket)"
+        + (f"; shapes the kernel phase did not time {untimed}"
+           if untimed else ""))
     n_expert = sum(expert_by.values())
     if moe_layers:
-        by_b = collections.Counter()
-        for (_, _, b), n in expert_by.items():
-            by_b[b] += n
-        other = {b: k1_by_m[b] - by_b[b] for b in K1_BUCKET_M
-                 if k1_by_m.get(b, 0) - by_b[b]}
-        shapes = collections.Counter()
+        other = collections.Counter(k1_by)
+        other.subtract(expert_by)
+        eshapes = collections.Counter()
         for (K, N, _), n in expert_by.items():
-            shapes[f"{K}x{N}"] += n
+            eshapes[f"{K}x{N}"] += n
         log(f"MoE layers {moe_layers} (swap order positions "
             f"{[order.index(i) for i in moe_layers]}): expert K1 launches "
             f"{n_expert} of {launches['wna16_gemm']}, by M "
-            f"{ {b: by_b[b] for b in K1_BUCKET_M if b in by_b} }, by shape "
-            f"{dict(shapes)}; estimated expert K1 device time "
-            f"{_k1_expert_estimate(expert_by, k1_shapes):.1f} ms (each "
-            f"launch x the kernel phase's time of its expert shape at the "
-            f"nearest timed M at or above its bucket, of {MOE_M}); the "
-            f"other K1 launches by M {other}, estimated "
-            f"{sum(n * k1_ms[b] for b, n in other.items()):.1f} ms; MoE "
-            f"dispatch host copies {host_syncs} (one an MoE layer a step)")
+            f"{_by_bucket(expert_by)}, by shape {dict(eshapes)}; estimated "
+            f"expert K1 device time "
+            f"{_k1_estimate(expert_by, k1_shapes)[0]:.1f} ms; the other K1 "
+            f"launches by M {_by_bucket(+other)}, estimated "
+            f"{_k1_estimate(+other, k1_shapes)[0]:.1f} ms; MoE dispatch "
+            f"host copies {host_syncs} (one an MoE layer a step)")
     widths = [str(w) for w in NB_BUCKETS] + [f">{NB_BUCKETS[-1]}"]
     for name, by_nb in k2_by_nb.items():
         if not by_nb:
@@ -1093,8 +1205,8 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
         if sum(by_nb.values()) != launches[name]:
             fails.append(f"{name} launches by table width {by_nb} do not add "
                          f"up to {launches[name]}")
-    if sum(k1_by_m.values()) != launches["wna16_gemm"]:
-        fails.append(f"K1 launches by M {k1_by_m} do not add up to "
+    if sum(k1_by.values()) != launches["wna16_gemm"]:
+        fails.append(f"K1 launches by shape {k1_by} do not add up to "
                      f"{launches['wna16_gemm']}")
     if report.n_finished != report.n_requests or report.n_requests == 0:
         fails.append("not every request was served")
@@ -1107,8 +1219,10 @@ def engine_phase(torch, model, counters, *, kv_blocks, kv_quant, k1_ms, k2,
     else:
         if max(levels) <= 0:
             fails.append("no swap level > 0 was reached")
-        if chunks <= 0:
+        if eng._can_chunk() and chunks <= 0:
             fails.append("no chunked prefill happened")
+        if not eng._can_chunk() and chunks:
+            fails.append(f"{chunks} chunked prefills in a whole-prompt family")
         if moe_layers and max(levels) <= min(order.index(i)
                                              for i in moe_layers):
             fails.append("no swap quantized an MoE layer")
@@ -1214,7 +1328,8 @@ def parity_phase(torch, cfg, eng, quantized=True, fp_level=False):
         what = "all layers int4" if lv == level else "bf16 weights"
         compare(f"decode step ({slots} live slots, level {lv}: {what}{tag})",
                 lambda k, v, kvq, plain: ex.decode(
-                    layers, tokens, lens, k, v, tables, kvq, plain=plain))
+                    layers, tokens, lens, k, v, tables, kvq=kvq,
+                    plain=plain))
         compare(f"chunk step (Cp=64 at pos0={pos0}, level {lv}{tag})",
                 lambda k, v, kvq, plain: ex.prefill_chunk(
                     layers, chunk, pos0, k, v, tables[0], kvq, plain=plain))
@@ -1231,6 +1346,138 @@ def parity_phase(torch, cfg, eng, quantized=True, fp_level=False):
     pool.quantize_blocks(qids, bits=8)
     live = sum(-(-int(n) // bs) for n in lens)
     steps(f"; {len(qids)} of {live} live blocks int8")
+
+
+def _as_f32(torch, tree):
+    """A params tree with its bf16 tensors cast to float32 (QTensors as
+    they are: the plain route dequantizes them in the activations' dtype)."""
+    if isinstance(tree, dict):
+        return {k: _as_f32(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_as_f32(torch, v) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dtype == torch.bfloat16:
+        return tree.float()
+    return tree
+
+
+def _pct(xs):
+    return " ".join(f"{100 * x:.2f}" for x in xs)
+
+
+def ssm_parity_phase(torch, cfg, params, plan):
+    """Whole-prompt prefill and one decode step of a full-width SSM or
+    hybrid model, from the same pool and SSM state, through three routes:
+    the kernels, their plain versions (both bf16), and the plain versions
+    on float32 copies of the same weights (the witness: no bf16 rounding
+    between layers), at level 0 and at the deepest level of ``plan``
+    (every layer int4: its in_proj and out_proj, and Hymba's attention and
+    MLP, through K1; Hymba's decode attention through K2 at every level).
+
+    Holds the logits of the kernel route within ``LOGIT_TOL`` x max|plain
+    logits| of the plain route. Holds the SSM state after the step against
+    the witness: the kernel route's distance from it may pass the bf16
+    plain route's own distance by at most ``STATE_TOL`` x max|state| (a
+    float32 state fed by bf16 layers drifts with depth in either route,
+    ROADMAP §3). Logs each layer's state gap, kernel vs plain, kernel vs
+    witness and plain vs witness, in % of max|state|. Prefill: one prompt
+    of 161 tokens (odd, so its scan runs a token a chunk) into slot 3;
+    decode: 8 live slots whose state (and, for Hymba, KV) comes from
+    prefills of 100 - 7 i tokens at the deepest level."""
+    from repro_torch.engine.kv_cache import PagedKVPool, StatePool
+    from repro_torch.engine.model_exec import ModelExec
+    from repro_torch.models import lm
+    kinds = lm.layer_kinds(cfg)
+    misc = {k: v for k, v in params.items() if k != "segments"}
+    ex, ex32 = ModelExec(cfg, misc, kinds), ModelExec(cfg, _as_f32(torch,
+                                                                  misc), kinds)
+    bs, slots, nb_t, S = 16, 8, 16, 161
+    hybrid = "hybrid" in kinds
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    pool = PagedKVPool(cfg, slots * nb_t + 12, bs, dtype=torch.float32,
+                       device="cuda")
+    sp = StatePool(cfg, slots, device="cuda")
+    tables = torch.arange(1, 1 + slots * nb_t, dtype=torch.int32,
+                          device="cuda").reshape(slots, nb_t)
+    lens = torch.tensor([100 - 7 * i for i in range(slots)],
+                        dtype=torch.int32, device="cuda")
+    deepest = max(plan.levels)
+
+    def blocks(ids):
+        return ids if hybrid else ids[:0]
+
+    for i in range(slots):
+        n = int(lens[i])
+        prompt = torch.randint(0, cfg.vocab, (1, n), generator=gen,
+                               device="cuda")
+        ex.prefill(plan.layer_list(deepest), prompt, pool.k, pool.v,
+                   blocks(tables[i, :-(-n // bs)]), sp.conv, sp.ssm, i)
+    prompt = torch.randint(0, cfg.vocab, (1, S), generator=gen, device="cuda")
+    ids = blocks(torch.arange(1 + slots * nb_t, 1 + slots * nb_t + 11,
+                              dtype=torch.int32, device="cuda"))
+    tokens = torch.randint(0, cfg.vocab, (slots, 1), generator=gen,
+                           device="cuda")
+
+    def gaps(x, y, scale):
+        """Each layer's max|x - y| over its state, over ``scale``."""
+        d = (x - y).abs().flatten(1).amax(1) / scale
+        return d.tolist()
+
+    def compare(what, run):
+        out = []
+        for route in ("kernel", "plain", "f32"):
+            k, v = pool.k.clone(), pool.v.clone()
+            conv, ssm = sp.conv.clone(), sp.ssm.clone()
+            out.append((run(route, k, v, conv, ssm).float(), conv, ssm))
+        torch.cuda.synchronize()
+        (a, ca, sa), (b, cb, sb), (w, cw, sw) = out
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        ok = err <= LOGIT_TOL * scale and bool(torch.isfinite(a).all())
+        log(f"  {what}: max|logit diff| {err:.4e} vs tol "
+            f"{LOGIT_TOL * scale:.4e} (max|logit| {scale:.3f}); from the "
+            f"float32 witness: kernel {float((a - w).abs().max()):.4e}, "
+            f"plain {float((b - w).abs().max()):.4e}")
+        for name, x, y, z in (("conv", ca, cb, cw), ("ssm", sa, sb, sw)):
+            st_scale = float(y.abs().max())
+            kp, kw, pw = (gaps(x, y, st_scale), gaps(x, z, st_scale),
+                          gaps(y, z, st_scale))
+            ok &= max(kw) <= max(pw) + STATE_TOL
+            ratios = [x / y for x, y in zip(kw, pw) if y > 0]
+            log(f"    {name} state, % of max|state| {st_scale:.4e}: kernel "
+                f"vs plain {100 * max(kp):.2f}, kernel vs witness "
+                f"{100 * max(kw):.2f}, plain vs witness {100 * max(pw):.2f} "
+                f"(tol: {100 * max(pw):.2f} + {100 * STATE_TOL:.2f}); the "
+                f"kernel route is the farther from the witness on "
+                f"{sum(x > y for x, y in zip(kw, pw))} of {len(kw)} layers, "
+                f"median ratio of the two gaps "
+                f"{statistics.median(ratios) if ratios else 1.0:.2f}")
+            log(f"      by layer, kernel vs plain: {_pct(kp)}")
+            log(f"      by layer, kernel vs witness: {_pct(kw)}")
+            log(f"      by layer, plain vs witness: {_pct(pw)}")
+        if not ok:
+            raise AssertionError(f"step parity failed for {what}")
+
+    for lv in (0, deepest):
+        layers = plan.layer_list(lv)
+        layers32 = [(kind, _as_f32(torch, p)) for kind, p in layers]
+
+        def route(r):
+            return ((ex32, layers32, True) if r == "f32" else
+                    (ex, layers, r == "plain"))
+
+        def prefill(r, k, v, conv, ssm):
+            e, lay, plain = route(r)
+            return e.prefill(lay, prompt, k, v, ids, conv, ssm, 3,
+                             plain=plain)
+
+        def decode(r, k, v, conv, ssm):
+            e, lay, plain = route(r)
+            return e.decode(lay, tokens, lens, k, v, tables, conv, ssm,
+                            plain=plain)
+
+        compare(f"prefill ({S} tokens into slot 3, level {lv})", prefill)
+        compare(f"decode step ({slots} live slots, level {lv})", decode)
+        del layers32
 
 
 def maverick_phase(torch, counters):
@@ -1278,7 +1525,9 @@ def main() -> int:
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.archs import DEEPSEEK_V3_671B, MORPH_LLAMA2_7B
+    from repro_torch.configs.archs import (DEEPSEEK_V3_671B, HYMBA_1P5B,
+                                           MAMBA2_780M, MORPH_LLAMA2_7B)
+    from repro_torch.core import build_swap_plan
     from repro_torch.kernels import build
     from repro_torch.kernels.paged_attention import (paged_chunk,
                                                      paged_chunk_mla,
@@ -1311,13 +1560,21 @@ def main() -> int:
     log("K1 at odd M, with inv_act and a bias, float32 and float16 x, "
         "groups 64 and 32 (held, not timed)")
     wna16_more_cases(torch, results)
+    log("K1 at the SSM and hybrid layers' matmul shapes (Mamba-2 780M, Hymba "
+        "1.5B: N = 6448 and 6482, groups 128 / 64)")
+    wna16_cases(torch, timer, results, SSM_WNA16_CASES)
     log("K1's bounds at the mma passes of its launch plan (bf16 "
         f"{BF16_FLOP_S / 1e12:.0f} TFLOP/s, HBM {HBM_BYTES_S / 1e12:.2f} TB/s)")
-    k1_ms, k1_shapes = wna16_bounds(results)
+    k1_shapes = wna16_bounds(results)
     decode_cases(torch, timer, results)
     log("K2 at the engine's decode shapes (8 slots, idle ones at length 0, "
         "table widths 8-64)")
     engine_decode_cases(torch, timer, results)
+    log("K2 at Hymba's heads (25 / 5 of 64, G = 5), its window of 1024 and "
+        "full attention, and at the engine's decode shapes")
+    decode_cases(torch, timer, results, HYMBA_DECODE_CASES, Dh=64)
+    engine_decode_cases(torch, timer, results, heads=HYMBA_HEADS,
+                        prefix="decode hymba engine")
     chunk_cases(torch, timer, results)
     log("kv_quant lane (pools quantized through PagedKVPool.quantize_blocks,"
         " every block but each sequence's tail; a zeroed sidecar must equal "
@@ -1334,6 +1591,7 @@ def main() -> int:
         f"{TF32_FLOP_S / 1e12:.0f} TFLOP/s, HBM {HBM_BYTES_S / 1e12:.2f} TB/s)")
     tensor_core_bounds(results, built)
     k2 = k2_table(results)
+    k2_hymba = k2_table(results, "decode hymba engine")
     log(f"kernel phase {time.perf_counter() - t0:.1f} s")
 
     # 3-4. the main path with the quantize-cold tier off, then on, then off
@@ -1350,17 +1608,17 @@ def main() -> int:
     log("engine phase, kv-quant tier off (quickstart budget: weights + 8 "
         "KV blocks)")
     launches = engine_phase(torch, model, counters, kv_blocks=8,
-                            kv_quant=False, k1_ms=k1_ms, k2=k2)[1]
+                            kv_quant=False, k1_shapes=k1_shapes, k2=k2)[1]
     log("engine phase, kv-quant tier on (weights + 16 KV blocks: the "
         "budget at which the quickstart trace engages the tier)")
     eng, q_launches = engine_phase(torch, model, counters, kv_blocks=16,
-                                   kv_quant=True, k1_ms=k1_ms, k2=k2)
+                                   kv_quant=True, k1_shapes=k1_shapes, k2=k2)
     launches.update({k: q_launches[k]
                      for k in ("paged_decode_q", "paged_chunk_q")})
     log("engine phase, kv-quant tier off at the tier-on budget (weights + "
         "16 KV blocks: the control that separates the tier's effect)")
     engine_phase(torch, model, counters, kv_blocks=16, kv_quant=False,
-                 k1_ms=k1_ms, k2=k2)
+                 k1_shapes=k1_shapes, k2=k2)
     log(f"engine phases {time.perf_counter() - t0:.1f} s")
 
     # 5. step parity
@@ -1385,8 +1643,8 @@ def main() -> int:
         f"latent blocks; swap levels {ladder}; chunks through K3-mla)")
     mla_eng, mla_launches = engine_phase(
         torch, mla, counters, kv_blocks=MLA_KV_BLOCKS, kv_quant=False,
-        k1_ms=k1_ms, k2=k2, need=("wna16_gemm", "paged_chunk_mla"),
-        ladder=ladder, k1_shapes=k1_shapes)
+        k1_shapes=k1_shapes, k2=k2, need=("wna16_gemm", "paged_chunk_mla"),
+        ladder=ladder)
     launches["paged_chunk_mla"] = mla_launches["paged_chunk_mla"]
     log(f"DeepSeek-V3 engine phase {time.perf_counter() - t0:.1f} s")
     log(f"DeepSeek-V3 step parity (kernels vs plain, the MoE layer's "
@@ -1403,6 +1661,53 @@ def main() -> int:
     t0 = time.perf_counter()
     mav = maverick_phase(torch, counters)
     log(f"Maverick phase {time.perf_counter() - t0:.1f} s; launches {mav}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9-10. Hymba 1.5B at full width and depth: the hybrid path (K1 on
+    # every swapped matmul, K2 at G = 5 and Dh 64 on every decode), then
+    # its step parity
+    t0 = time.perf_counter()
+    hym = build_model(torch, HYMBA_1P5B)
+    log("Hymba engine phase (weights + 8 float32 KV blocks; whole-prompt "
+        "prefill at the prompt's length)")
+    hym_eng = engine_phase(torch, hym, counters, kv_blocks=8, kv_quant=False,
+                           k1_shapes=k1_shapes, k2=k2_hymba,
+                           need=("wna16_gemm", "paged_decode"))[0]
+    log(f"Hymba engine phase {time.perf_counter() - t0:.1f} s")
+    log(f"Hymba step parity (kernels vs plain, tolerance {LOGIT_TOL} x "
+        f"max|logit|; state against the float32 witness, {STATE_TOL} x "
+        f"max|state| past the plain route's own gap)")
+    t0 = time.perf_counter()
+    ssm_parity_phase(torch, hym[0], hym[1], hym_eng.plan)
+    log(f"Hymba step parity {time.perf_counter() - t0:.1f} s")
+    del hym, hym_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 11-12. Mamba-2 780M at full width, depth cut 48 -> MAMBA_LAYERS: no KV
+    # blocks, so only queue delay trips the controller, at MAMBA_RPS; then
+    # step parity
+    t0 = time.perf_counter()
+    mam = build_model(torch, MAMBA2_780M.replace(n_layers=MAMBA_LAYERS))
+    log(f"Mamba-2 engine phase (the trace at {MAMBA_RPS} requests a second; "
+        f"budget the weights, its KV block being 0 bytes)")
+    mam_eng = engine_phase(torch, mam, counters, kv_blocks=8, kv_quant=False,
+                           k1_shapes=k1_shapes, k2=k2, need=("wna16_gemm",),
+                           rps=MAMBA_RPS)[0]
+    log(f"Mamba-2 engine phase {time.perf_counter() - t0:.1f} s")
+    del mam, mam_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"Mamba-2 step parity at full depth (kernels vs plain, tolerance "
+        f"{LOGIT_TOL} x max|logit|; state against the float32 witness, "
+        f"{STATE_TOL} x max|state| past the plain route's own gap)")
+    t0 = time.perf_counter()
+    mcfg, mparams, morder = build_model(torch, MAMBA2_780M, profile=False)
+    ssm_parity_phase(torch, mcfg, mparams, build_swap_plan(
+        mcfg, mparams, morder, levels=(0, mcfg.n_layers), use_kernel=True))
+    log(f"Mamba-2 step parity {time.perf_counter() - t0:.1f} s")
+    del mparams
 
     # the representative main-path case of each kernel, errors over all cases
     main_case = {"wna16_gemm": "wna16 M=8 K=4096 N=11008 int4",

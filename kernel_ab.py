@@ -2,7 +2,8 @@
 """The hand-written kernels of this checkout against another's on one card,
 and the build report of this checkout's kernels.
 
-    python3 kernel_ab.py [--parent DIR] [--out PATH]
+    python3 kernel_ab.py [--parent DIR] [--only-k1] [--parent-k1-lib]
+                         [--out PATH]
 
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 and ``cuobjdump`` (``CUDA_HOME`` or ``/usr/local/cuda``). ``DIR`` is the
@@ -13,7 +14,10 @@ root of another checkout of the repository (for example an unpacked
    ``paged_attention_mla.cu`` and ``paged_attention.cu`` to sm_90a cubins
    with ``-Xptxas -v`` and prints, for each kernel, its registers, its
    spill stores and loads and its count of tensor-core instructions (HMMA /
-   HGMMA) in ``cuobjdump -sass``;
+   HGMMA) in ``cuobjdump -sass``; with ``--parent`` the same for the
+   parent's sources, and for each main-path instantiation whether its SASS
+   (addresses and constant-bank offsets masked) is the parent's, line for
+   line;
 2. cases: chip_smoke.py's kernel cases of the wNa16 GEMM (K1), the decode
    walk (K2, K2-q, with its engine-shaped cases), the chunk walk (K3,
    K3-q) and its latent mode (K3-mla), each held against its plain version and timed as
@@ -21,7 +25,11 @@ root of another checkout of the repository (for example an unpacked
    process per run; the table compares the kernel's times only. With
    ``--parent`` the runs go parent, this, this, parent, each child
    importing the port from its own checkout; a case a checkout refuses is
-   recorded as refused.
+   recorded as refused. ``--only-k1`` runs K1's cases alone;
+   ``--parent-k1-lib`` adds two runs of this checkout with the parent's
+   K1 library in place of its own (parent, this, this + parent's K1,
+   this + parent's K1, this, parent), which tells the kernel's code from
+   the host's side of a difference.
 
 Prints the card's name and power limit, the report and a table of kernel
 ms per run, and writes all of it to ``--out`` (JSON). Exits non-zero when
@@ -32,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import difflib
 import json
 import os
 import re
@@ -47,10 +56,10 @@ ROOT = Path(__file__).resolve().parent
 REPORT_SOURCES = ("wna16_gemm", "paged_chunk", "paged_attention_mla",
                   "paged_attention")
 # the instantiations of the main path: K1 at decode and prefill M (bf16 x,
-# int4), K2 / K2-q and K3 / K3-q (bf16 q, float32 pool) and K3-mla
-# (float32 q and pool)
-MIX_KERNELS = ("wna16_kernel<bf16, 4, 8, 8, 0>",
-               "wna16_kernel<bf16, 4, 64, 8, 0>",
+# int4, the 16-byte build), K2 / K2-q and K3 / K3-q (bf16 q, float32 pool)
+# and K3-mla (float32 q and pool)
+MIX_KERNELS = ("wna16_kernel<bf16, 4, 8, 8, 0, 0>",
+               "wna16_kernel<bf16, 4, 64, 8, 0, 0>",
                "paged_decode_kernel<bf16, float, 128, 0>",
                "paged_decode_kernel<bf16, float, 128, 1>",
                "paged_chunk_kernel<bf16, float, 128, 128, 0>",
@@ -85,18 +94,32 @@ def _short(name: str) -> str:
     return re.sub(r"\([^()]*\)$", "", name).replace("void ", "").strip()
 
 
-def report(tmp: Path) -> list:
+def _masked(lines) -> list:
+    """SASS lines without their addresses, encodings and constant-bank
+    offsets (which move with a struct's size, not with the code)."""
+    out = []
+    for line in lines:
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if m:
+            out.append(re.sub(r"c\[0x[0-9a-f]+\]\[0x[0-9a-f]+\]", "c[..]",
+                              m.group(1)))
+    return out
+
+
+def report(tmp: Path, tree: Path = ROOT) -> list:
     """Registers, spills and tensor-core instructions of every kernel of
-    ``REPORT_SOURCES`` (compiled with the build's flags to cubins)."""
+    ``REPORT_SOURCES`` in ``tree`` (compiled with the build's flags to
+    cubins), and the masked SASS of each."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    csrc = tree / "src" / "repro_torch" / "kernels" / "csrc"
     flags = [f for f in build.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
     procs = {}
     for name in REPORT_SOURCES:
         cubin = tmp / f"{name}.cubin"
         cmd = [build.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v", "-o",
-               str(cubin), str(build.CSRC / f"{name}.cu")]
+               str(cubin), str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        cubin)
@@ -125,7 +148,7 @@ def report(tmp: Path) -> list:
         sass = subprocess.run([_cuda_bin("cuobjdump"), "-sass", str(cubin)],
                               capture_output=True, text=True, check=True
                               ).stdout
-        mma, ops, cur = {}, {}, None
+        mma, ops, text, cur = {}, {}, collections.defaultdict(list), None
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
@@ -133,6 +156,8 @@ def report(tmp: Path) -> list:
                 mma[cur] = 0
                 ops[cur] = collections.Counter()
                 continue
+            if cur:
+                text[cur].append(line)
             m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
                           line)
             if cur and m:
@@ -151,14 +176,42 @@ def report(tmp: Path) -> list:
                              tensor_core_instructions=mma.get(mangled, 0),
                              sass_instructions=sum(
                                  ops.get(mangled, {}).values()),
-                             top_opcodes=top, **info[mangled]))
+                             top_opcodes=top, sass=_masked(text[mangled]),
+                             **info[mangled]))
     return rows
 
 
-def child(tree: Path, out: Path) -> int:
-    """Check and time every kernel case with the port of ``tree``."""
+def compare_sass(rows, parent_rows) -> None:
+    """Log, for each main-path instantiation, this build's registers and
+    instructions beside the parent's and the SASS lines that differ."""
+    theirs = {r["kernel"]: r for r in parent_rows}
+    for r in rows:
+        if r["kernel"] not in MIX_KERNELS:
+            continue
+        name = r["kernel"]
+        if name.startswith("wna16"):   # the parent's K1 has no NARROW flag
+            name = re.sub(r", 0>$", ">", name)
+        p = theirs.get(name)
+        if p is None:
+            log(f"  {r['kernel']}: not in the parent's build")
+            continue
+        diff = [ln for ln in difflib.unified_diff(p["sass"], r["sass"],
+                                                  lineterm="", n=0)
+                if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+        log(f"  {r['kernel']}: regs {p['regs']} -> {r['regs']}, SASS "
+            f"instructions {p['sass_instructions']} -> "
+            f"{r['sass_instructions']}, {len(diff)} masked lines differ"
+            + (f"; first: {diff[:6]}" if diff else ""))
+
+
+def child(tree: Path, out: Path, only_k1: bool = False,
+          k1_lib: Path = None) -> int:
+    """Check and time every kernel case (K1's alone with ``only_k1``) with
+    the port of ``tree``, its K1 library replaced by ``k1_lib`` if given."""
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(0, str(ROOT))
+    import ctypes
+
     import torch
 
     import chip_smoke as cs
@@ -166,6 +219,8 @@ def child(tree: Path, out: Path) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build_all()
+    if k1_lib is not None:
+        build._LIBS["wna16_gemm"] = ctypes.CDLL(str(k1_lib))
     timer = cs.Timer(torch)
     results, refused = [], []
 
@@ -179,6 +234,10 @@ def child(tree: Path, out: Path) -> int:
                 log(f"  refused {case}: {e}")
 
     each(cs.wna16_cases, cs.WNA16_CASES)
+    if only_k1:
+        out.write_text(json.dumps(dict(tree=str(tree), results=results,
+                                       refused=refused)))
+        return 0
     each(cs.decode_cases, cs.DECODE_CASES)
     each(cs.engine_decode_cases, cs.ENGINE_DECODE_CASES)
     each(cs.chunk_cases, cs.CHUNK_CASES)
@@ -197,13 +256,18 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--out", type=Path,
                     default=ROOT / "bench_out" / "kernel_ab.json")
+    ap.add_argument("--only-k1", action="store_true")
+    ap.add_argument("--parent-k1-lib", action="store_true")
     ap.add_argument("--child", type=Path, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--child-out", type=Path, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--k1-lib", type=Path, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child is not None:
-        return child(args.child.resolve(), args.child_out)
+        return child(args.child.resolve(), args.child_out, args.only_k1,
+                     args.k1_lib)
 
     import torch
     if not torch.cuda.is_available():
@@ -221,6 +285,10 @@ def main() -> int:
     builds = {k: _start_build(t) for k, t in trees.items()}
     with tempfile.TemporaryDirectory() as tmp:
         rows = report(Path(tmp))
+    parent_rows = []
+    if "parent" in trees:
+        with tempfile.TemporaryDirectory() as tmp:
+            parent_rows = report(Path(tmp), trees["parent"])
     for k, proc in builds.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
@@ -236,24 +304,35 @@ def main() -> int:
     for r in rows:     # the instruction mix of the main path's instantiations
         if r["kernel"] in MIX_KERNELS:
             log(f"  {r['kernel']} top opcodes: {r['top_opcodes']}")
+    if parent_rows:
+        log("main-path instantiations against the parent's build:")
+        compare_sass(rows, parent_rows)
 
     order = ["parent", "this", "this", "parent"] if "parent" in trees \
         else ["this"]
+    k1_lib = None
+    if args.parent_k1_lib and "parent" in trees:
+        k1_lib = next((trees["parent"] / "src" / "repro_torch" / "kernels"
+                       / "build").glob("libwna16_gemm-*.so"))
+        order = ["parent", "this", "mixed", "mixed", "this", "parent"]
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
         for i, k in enumerate(order):
             out = Path(tmp) / f"run{i}.json"
             t1 = time.perf_counter()
-            rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                                 "--child", str(trees[k]), "--child-out",
-                                 str(out)]).returncode
+            cmd = [sys.executable, str(Path(__file__).resolve()), "--child",
+                   str(trees["this" if k == "mixed" else k]), "--child-out",
+                   str(out)]
+            cmd += ["--only-k1"] if args.only_k1 else []
+            cmd += ["--k1-lib", str(k1_lib)] if k == "mixed" else []
+            rc = subprocess.run(cmd).returncode
             if rc != 0:
                 raise RuntimeError(f"run {i} ({k}) failed with rc {rc}")
             run = json.loads(out.read_text())
             run.update(tree=k, seconds=time.perf_counter() - t1)
             runs.append(run)
             log(f"run {i} ({k}) {run['seconds']:.1f} s")
-            if k == "this" and run["refused"]:
+            if k != "parent" and run["refused"]:
                 raise AssertionError(f"this checkout refused {run['refused']}")
 
     cases = []
@@ -261,7 +340,8 @@ def main() -> int:
         if "ms" in r:        # K1 holds some cases without timing them
             cases.append((r["kernel"], r["case"]))
     table = []
-    log("kernel case | ms per run (" + ", ".join(order) + ") | this / parent")
+    log("kernel case | ms per run (" + ", ".join(order) + ") | this / parent"
+        + (" | this with the parent's K1 / parent" if k1_lib else ""))
     for kernel, case in cases:
         per_run = []
         for run in runs:
@@ -271,17 +351,26 @@ def main() -> int:
         mine = [m for m, k in zip(per_run, order) if k == "this"]
         theirs = [m for m, k in zip(per_run, order)
                   if k == "parent" and m is not None]
+        mixed = [m for m, k in zip(per_run, order) if k == "mixed"]
         ratio = (statistics.median(mine) / statistics.median(theirs)
                  if theirs else None)
+        mixed_ratio = (statistics.median(mixed) / statistics.median(theirs)
+                       if theirs and mixed else None)
         table.append(dict(kernel=kernel, case=case, ms=per_run,
-                          this_over_parent=ratio))
+                          this_over_parent=ratio,
+                          this_parent_k1_over_parent=mixed_ratio))
         log(f"  {kernel} {case} | "
             + ", ".join("refused" if m is None else f"{m:.4f}"
                         for m in per_run)
-            + " | " + ("-" if ratio is None else f"{ratio:.3f}"))
+            + " | " + ("-" if ratio is None else f"{ratio:.3f}")
+            + ("" if mixed_ratio is None else f" | {mixed_ratio:.3f}"))
     args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps(dict(card=card, order=order, report=rows,
-                                        table=table, runs=runs), indent=1))
+    def brief(rs):          # the report without its SASS text
+        return [{k: v for k, v in r.items() if k != "sass"} for r in rs]
+
+    args.out.write_text(json.dumps(dict(
+        card=card, order=order, report=brief(rows),
+        parent_report=brief(parent_rows), table=table, runs=runs), indent=1))
     log(f"wrote {args.out}")
     return 0
 

@@ -9,7 +9,9 @@ fields — ``packed``, ``scales``, ``zeros``, ``inv_act`` as numpy arrays and
 becomes a :class:`~repro_torch.quant.QTensor`, 2-D or a stack of MoE
 experts (3-D ``packed``/``scales``/``zeros``). A JAX ``PagedKVPool``'s
 device state (fp pools, quantized-KV sidecar, ``qbits``) crosses with
-:func:`copy_pool_state`.
+:func:`copy_pool_state`, a JAX engine's per-slot SSM state
+(``ssm_conv``/``ssm_ssm``) with :func:`copy_ssm_state`. 0-d arrays (a
+hybrid layer's ``beta_a``/``beta_s``) become 0-d tensors.
 """
 from __future__ import annotations
 
@@ -61,7 +63,8 @@ def to_torch(tree, device="cuda"):
                        inv_act=None if inv is None
                        else array_to_torch(inv, device),
                        use_kernel=bool(getattr(tree, "use_kernel", False)))
-    if tree is None or isinstance(tree, (bool, int, float, str)):
+    if tree is None or (isinstance(tree, (bool, int, float, str))
+                        and not isinstance(tree, np.generic)):
         return tree
     return array_to_torch(tree, device)
 
@@ -91,6 +94,20 @@ def copy_pool_state(src, dst) -> None:
             t = t.to(dst.dtype)
         setattr(dst, name, t)
     dst.qbits = dict(src.qbits)
+
+
+def copy_ssm_state(src, dst) -> None:
+    """Give the port's engine ``dst`` the per-slot SSM state of ``src``,
+    any object with the JAX engine's ``ssm_conv`` (n_ssm, slots, d_conv -
+    1, conv_ch) and ``ssm_ssm`` (n_ssm, slots, H, P, N) as
+    numpy-convertible float32 arrays, copied into ``dst``'s tensors in
+    place."""
+    for name in ("ssm_conv", "ssm_ssm"):
+        a, t = np.asarray(getattr(src, name)), getattr(dst, name)
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"state shapes differ ({name}): {a.shape} vs "
+                             f"{tuple(t.shape)}")
+        t.copy_(array_to_torch(a, t.device))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import heapq
 from typing import Deque, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -34,7 +33,8 @@ from repro_torch.core import (KVQuantActuator, MemoryLedger, MorphingActuator,
                         Telemetry, build_swap_plan, front_to_back_order)
 from repro_torch.engine import model_exec
 from repro_torch.engine.cost_model import CostModel, HardwareProfile, NVIDIA_L4
-from repro_torch.engine.kv_cache import PagedKVPool, PrefixCache, kv_block_bytes
+from repro_torch.engine.kv_cache import (PagedKVPool, PrefixCache, StatePool,
+                                         kv_block_bytes)
 from repro_torch.engine.metrics import ServingReport, build_report
 from repro_torch.engine.request import (Request, RState, derive_token_seed,
                                   sim_token)
@@ -214,7 +214,9 @@ class EngineConfig:
 class MorphServeEngine:
     def __init__(self, cfg: ModelConfig, params, serving: ServingConfig,
                  ecfg: EngineConfig, *, swap_order: Optional[Sequence[int]] = None,
-                 fault_injector=None, device="cuda"):
+                 fault_injector=None, device="cuda", plan=None):
+        # ``plan``: a prebuilt SwapPlan to book instead of building one (a
+        # sim engine given a real model's per-layer bytes)
         # resolves "cuda" to the current card (and raises without one)
         self.device = torch.empty(0, device=device).device
         if ecfg.compute == "real":
@@ -238,7 +240,9 @@ class MorphServeEngine:
         self.use_quant_kernel = (serving.use_quant_kernel
                                  if ecfg.use_quant_kernel is None
                                  else ecfg.use_quant_kernel)
-        if ecfg.compute == "sim":
+        if plan is not None:
+            self.plan = plan
+        elif ecfg.compute == "sim":
             from repro_torch.core.swap_plan import build_sim_swap_plan
             self.plan = build_sim_swap_plan(cfg, order, serving=serving,
                                             bits=serving.swap_bits)
@@ -315,6 +319,15 @@ class MorphServeEngine:
         self.max_nb = serving.max_blocks_per_seq or \
             -(-serving.max_seq_len // bs)
         self._slot_req: List[Optional[Request]] = [None] * self.slots
+        # per-slot SSM state, float32, beside the ledger (as in the JAX
+        # engine, which does not book it)
+        self.state_pool = None
+        self.ssm_conv = self.ssm_ssm = torch.zeros((0,), device=self.device)
+        if ecfg.compute == "real" and \
+                any(k in ("mamba", "hybrid") for k in self.kinds):
+            self.state_pool = StatePool(cfg, self.slots, device=self.device)
+            self.ssm_conv = self.state_pool.conv
+            self.ssm_ssm = self.state_pool.ssm
 
         # --- execution + cost ------------------------------------------------
         if ecfg.compute == "real":
@@ -1102,7 +1115,7 @@ class MorphServeEngine:
         ids = self._dev(np.asarray(r.block_ids, np.int32))
         logits = self.exec.prefill(self.actuator.layer_list(),
                                    self._dev(toks), self.pool.k, self.pool.v,
-                                   ids)
+                                   ids, self.ssm_conv, self.ssm_ssm, r.slot)
         return int(torch.argmax(logits[r.prompt_len - 1]))
 
     # ------------------------------------------------------------------
@@ -1239,6 +1252,7 @@ class MorphServeEngine:
         logits = self.exec.decode(self.actuator.layer_list(),
                                   self._dev(tokens), self._dev(pos),
                                   self.pool.k, self.pool.v, self._dev(tables),
+                                  self.ssm_conv, self.ssm_ssm,
                                   self.pool.kv_quant_bundle())
         toks = torch.argmax(logits, dim=-1).cpu().numpy()
         for r in run:
@@ -1284,7 +1298,7 @@ class MorphServeEngine:
             doomed.update(b for b in cache.by_block if b >= limit)
         if not doomed:
             return True
-        free_low = sorted(b for b in alloc.free if b < limit)
+        free_low = alloc.lowest_free(limit, len(doomed))
         if len(free_low) < len(doomed):
             return False                     # not enough room below the cut
         src = sorted(doomed)
@@ -1298,9 +1312,7 @@ class MorphServeEngine:
                 del cache.by_block[e.block_id]
                 e.block_id = mapping[e.block_id]
                 cache.by_block[e.block_id] = e
-        taken = set(free_low[:len(src)])
-        alloc.free = [b for b in alloc.free if b not in taken] + src
-        heapq.heapify(alloc.free)
+        alloc.exchange(free_low, src)
         if self.ec.compute == "real":
             # one in-place device gather/scatter for the moved blocks; the
             # quantized payload and sidecar ride the move and the vacated
@@ -1603,7 +1615,7 @@ class MorphServeEngine:
         regions and children counts from parent links. Dropped blocks no
         live request reads go back to the allocator."""
         cache = self.prefix_cache
-        free = set(self.pool.alloc.free)
+        free = self.pool.alloc.free_ids()
         dropped: set = set()
         changed = True
         while changed:
@@ -1667,7 +1679,7 @@ class MorphServeEngine:
                                          else self.pool.num_blocks - 1)
             self.watchdog_repairs += 1
         # 2. block tables: bounds, free-list overlap, private ownership
-        free = set(self.pool.alloc.free)
+        free = self.pool.alloc.free_ids()
         owners: set = set()
         for r in list(self.running):
             bad = None

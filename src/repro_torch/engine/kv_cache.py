@@ -11,6 +11,10 @@ blocks first so that shrinking can usually drop a free tail; ``resize`` grows
 by padding (ids stable) and shrinks only when the tail is free — the engine
 compacts or defers otherwise.
 
+SSM and hybrid layers keep a per-slot recurrent state instead
+(:class:`StatePool`); an SSM config's KV block is 0 bytes and a request
+takes no blocks.
+
 Unlike the JAX package's immutable arrays, the pool tensors here are updated
 **in place** (block moves, scatters, and the model's KV appends in
 ``engine/model_exec``), so no step copies a pool.
@@ -40,61 +44,101 @@ def kv_block_bytes(cfg: ModelConfig, block_size: int,
     return L * block_size * 2 * kvh * dh * dtype_bytes
 
 
-class BlockAllocator:
-    """Lowest-id-first allocator over a heapq free list.
+class _FreeIds:
+    """Membership in an allocator's free ids, without listing its tail."""
 
-    O(log n) alloc/release (was: full re-sort on every release), so the host
-    scheduler stays linear in blocks touched per step."""
+    def __init__(self, heap, fresh: int, num_blocks: int):
+        self._heap = set(heap)
+        self._fresh = fresh
+        self._num_blocks = num_blocks
+
+    def __contains__(self, b) -> bool:
+        return self._fresh <= b < self._num_blocks or b in self._heap
+
+
+class BlockAllocator:
+    """Lowest-id-first allocator: a heapq of the released ids, all below
+    ``fresh``, and the never-allocated tail [fresh, num_blocks) kept as a
+    range. It hands out the ids the JAX package's single heapq does, in
+    the same order, but growing costs O(1) whatever the count: an SSM
+    config's KV block is 0 bytes, so the ledger grows its pool by tens of
+    millions of blocks when a swap frees weight bytes.
+
+    O(log n) alloc/release, so the host scheduler stays linear in blocks
+    touched per step."""
 
     def __init__(self, num_blocks: int):
-        # block 0 reserved as scratch; ascending list is already a valid heap
+        # block 0 reserved as scratch
         self.num_blocks = num_blocks
-        self.free: List[int] = list(range(1, num_blocks))
+        self.heap: List[int] = []
+        self.fresh = 1
+
+    def free_ids(self) -> _FreeIds:
+        """The free ids as a membership test (O(released ids) to build)."""
+        return _FreeIds(self.heap, self.fresh, self.num_blocks)
 
     @property
     def n_free(self) -> int:
-        return len(self.free)
+        return len(self.heap) + self.num_blocks - self.fresh
 
     @property
     def n_used(self) -> int:
-        return self.num_blocks - 1 - len(self.free)
+        return self.num_blocks - 1 - self.n_free
+
+    def _pop(self) -> int:
+        if self.heap:
+            return heapq.heappop(self.heap)
+        self.fresh += 1
+        return self.fresh - 1
 
     def alloc(self, n: int) -> Optional[List[int]]:
-        if n > len(self.free):
+        if n > self.n_free:
             return None
-        return [heapq.heappop(self.free) for _ in range(n)]
+        return [self._pop() for _ in range(n)]
 
     def release(self, ids: List[int]) -> None:
         for b in ids:
-            assert 0 < b < self.num_blocks
-            heapq.heappush(self.free, b)
+            assert 0 < b < self.fresh
+            heapq.heappush(self.heap, b)
+
+    def lowest_free(self, limit: int, n: int) -> List[int]:
+        """The (at most) ``n`` lowest free ids below ``limit``."""
+        low = heapq.nsmallest(n, (b for b in self.heap if b < limit))
+        return low + list(range(self.fresh,
+                                min(limit, self.fresh + n - len(low))))
+
+    def exchange(self, taken: Sequence[int], returned: Sequence[int]) -> None:
+        """Mark the free ids ``taken`` used and the used ids ``returned``
+        free (a compaction's moves)."""
+        top = max(taken, default=0)
+        if top >= self.fresh:          # list the tail up to the last taken
+            self.heap.extend(range(self.fresh, top + 1))
+            self.fresh = top + 1
+        gone = set(taken)
+        self.heap = [b for b in self.heap if b not in gone] + list(returned)
+        heapq.heapify(self.heap)
 
     def grow(self, new_num_blocks: int) -> None:
         assert new_num_blocks >= self.num_blocks
-        # fresh ids exceed every id already in the heap, so appending them
-        # preserves the heap invariant (parents are all smaller).
-        self.free.extend(range(self.num_blocks, new_num_blocks))
         self.num_blocks = new_num_blocks
 
     def shrinkable_to(self) -> int:
-        """Smallest pool size droppable right now (free tail only).
-
-        Builds a set of the free list (O(len(free))) and walks down from the
-        top id while it is free — computed from the free structure alone
-        (no set(range(num_blocks)) materialization as before)."""
+        """Smallest pool size droppable right now (free tail only): walks
+        down from the top id while it is free."""
         if self.n_used == 0:
             return 1
-        free_set = set(self.free)
-        b = self.num_blocks - 1
-        while b in free_set:
+        heap = set(self.heap)
+        b = self.fresh - 1
+        while b in heap:
             b -= 1
         return b + 1
 
     def shrink(self, new_num_blocks: int) -> bool:
         if new_num_blocks < self.shrinkable_to():
             return False
-        self.free = [b for b in self.free if b < new_num_blocks]
-        heapq.heapify(self.free)
+        self.heap = [b for b in self.heap if b < new_num_blocks]
+        heapq.heapify(self.heap)
+        self.fresh = min(self.fresh, new_num_blocks)
         self.num_blocks = new_num_blocks
         return True
 
@@ -647,7 +691,7 @@ class PrefixCache:
 
     # -- invariants (tests) ----------------------------------------------
     def check(self, alloc: "BlockAllocator") -> None:
-        free = set(alloc.free)
+        free = alloc.free_ids()
         child_counts: Dict[int, int] = {}
         for e in self.entries.values():
             assert self.by_block[e.block_id] is e
@@ -662,3 +706,35 @@ class PrefixCache:
         for key, e in self.entries.items():
             assert e.children == child_counts.get(key, 0)
         assert len(self.by_block) == len(self.entries)
+
+
+class StatePool:
+    """Per-slot recurrent state of the SSM and hybrid layers: ``conv``
+    (n_ssm, slots, d_conv - 1, conv_ch) and ``ssm`` (n_ssm, slots, H, P,
+    N), float32, on ``device`` (None for a config without such layers).
+    The decode and prefill steps update them in place."""
+
+    def __init__(self, cfg: ModelConfig, slots: int, device="cuda"):
+        from repro_torch.models.mamba import mamba_init_state
+        self.cfg = cfg
+        self.slots = slots
+        self.layers = _ssm_layer_indices(cfg)
+        self.conv = self.ssm = None
+        if self.layers:
+            n = len(self.layers)
+            st = mamba_init_state(cfg, slots, device=device)
+            self.conv = st["conv"].expand(n, *st["conv"].shape).clone()
+            self.ssm = st["ssm"].expand(n, *st["ssm"].shape).clone()
+
+    def state_bytes_per_slot(self) -> int:
+        if self.conv is None:
+            return 0
+        per = (self.conv[0, 0].numel() * self.conv.element_size()
+               + self.ssm[0, 0].numel() * self.ssm.element_size())
+        return per * len(self.layers)
+
+
+def _ssm_layer_indices(cfg: ModelConfig) -> List[int]:
+    from repro_torch.models.lm import layer_kinds
+    return [i for i, k in enumerate(layer_kinds(cfg))
+            if k in ("mamba", "hybrid")]

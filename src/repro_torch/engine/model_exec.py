@@ -1,6 +1,7 @@
 """Model execution over the paged KV pool + mixed-precision layers (GQA,
-and DeepSeek's MLA over the latent pool; a layer's FFN is its MLP or, in
-an MoE layer, ``models/moe.moe_apply`` at no-drop capacity).
+DeepSeek's MLA over the latent pool, and the SSM and hybrid layers with
+their per-slot state; a layer's FFN is its MLP or, in an MoE layer,
+``models/moe.moe_apply`` at no-drop capacity).
 
 This is the worker's data plane. PyTorch runs eagerly, so there is no jit
 cache; what stays from the JAX package is the bucketing that fixes shapes:
@@ -25,6 +26,15 @@ The decode and chunk steps take the pool's quantized-KV bundle ``kvq``
 quantized) and hand each layer its slice. Whole-prompt prefill takes none:
 it writes only freshly allocated blocks and reads no pool KV.
 
+SSM (``mamba``) and ``hybrid`` layers carry a per-slot recurrent state,
+``ssm_conv`` (n_ssm, slots, d_conv - 1, conv_ch) and ``ssm_ssm`` (n_ssm,
+slots, H, P, N) in float32 (``engine.kv_cache.StatePool``), indexed by the
+layer's position among those layers. Decode updates every slot's row in
+place; whole-prompt prefill writes the request's ``slot`` row. A hybrid
+layer's attention is GQA over the paged pool (the decode walk, K2, beside
+``models/mamba.mamba_decode``); its prefill is whole-prompt, at the
+prompt's exact length, since an SSM state would take in end padding.
+
 MLA layers keep one latent row (c_kv, k_rope) per token in ``pool_k``
 (KVH = 1, Dh = r + rope; ``pool_v`` is a placeholder nobody reads). Decode
 and chunk prefill score against the latent pool with the absorbed weights
@@ -44,6 +54,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import lm
+from repro_torch.models import mamba as M
 from repro_torch.quant import qlinear
 
 
@@ -154,17 +165,45 @@ def _paged_mla_decode(p, cfg, x, pool_k, li, tables, pos, plain=False):
     return qlinear.matmul(out.reshape(slots, 1, -1), p["wo"], plain=plain)
 
 
+def _ssm_decode(p, cfg, h, ssm_conv, ssm_ssm, li, plain):
+    """One SSM mixer's decode over every slot, its state row ``li`` of
+    ``ssm_conv``/``ssm_ssm`` updated in place."""
+    y, st = M.mamba_decode(p, cfg, h, {"conv": ssm_conv[li],
+                                       "ssm": ssm_ssm[li]}, plain=plain)
+    ssm_conv[li] = st["conv"]
+    ssm_ssm[li] = st["ssm"]
+    return y
+
+
 def paged_decode_step(cfg: ModelConfig, kinds, specs, misc, layer_params,
-                      tokens, pos, pool_k, pool_v, tables, kvq=None, *,
-                      plain: bool = False):
+                      tokens, pos, pool_k, pool_v, tables, ssm_conv=None,
+                      ssm_ssm=None, kvq=None, *, plain: bool = False):
     """tokens: (slots, 1); pos: (slots,) int32 absolute index of the token
     being decoded (its RoPE position and KV append slot); tables:
-    (slots, nb) int32; ``kvq``: the pool's quantized-KV bundle or None.
-    Appends each layer's KV to the pools in place. MLA layers take the
-    absorbed params. Returns logits (slots, V)."""
+    (slots, nb) int32; ``ssm_conv``/``ssm_ssm``: the SSM state of every
+    slot (None without SSM layers); ``kvq``: the pool's quantized-KV
+    bundle or None. Appends each layer's KV to the pools and advances each
+    SSM layer's state, in place. MLA layers take the absorbed params.
+    Returns logits (slots, V)."""
     x = lm.embed_tokens(cfg, misc, tokens)
+    ssm_li = 0
     for i, p in enumerate(layer_params):
+        if kinds[i] == "mamba":
+            h = L.apply_norm(cfg.norm, p["norm"], x)
+            x = x + _ssm_decode(p["mixer"], cfg, h, ssm_conv, ssm_ssm,
+                                ssm_li, plain)
+            ssm_li += 1
+            continue
         h = L.apply_norm(cfg.norm, p["ln1"], x)
+        if kinds[i] == "hybrid":
+            a = _paged_gqa_decode(p["attn"], cfg, h, pool_k, pool_v, i,
+                                  tables, pos, specs[i], _layer_kvq(kvq, i),
+                                  plain)
+            s = _ssm_decode(p["ssm"], cfg, h, ssm_conv, ssm_ssm, ssm_li,
+                            plain)
+            ssm_li += 1
+            x = lm.hybrid_ffn(p, cfg, x, a, s, plain=plain)
+            continue
         if cfg.mla is not None:
             attn_out = _paged_mla_decode(p["attn"], cfg, h, pool_k, i,
                                          tables, pos, plain)
@@ -180,10 +219,13 @@ def paged_decode_step(cfg: ModelConfig, kinds, specs, misc, layer_params,
 # Whole-prompt prefill
 # ---------------------------------------------------------------------------
 def paged_prefill(cfg: ModelConfig, kinds, misc, layer_params, tokens,
-                  pool_k, pool_v, block_ids, *, plain: bool = False):
+                  pool_k, pool_v, block_ids, ssm_conv=None, ssm_ssm=None,
+                  slot: int = 0, *, plain: bool = False):
     """Prefill ONE request (batch 1, padded length Sp <= len(block_ids)*bs).
     tokens: (1, Sp); block_ids: (nb,) — scratch 0 where padded. Scatters
-    the KV into the pools in place. Returns full logits (Sp, V)."""
+    the KV into the pools in place, and each SSM layer's final state into
+    row ``slot`` of ``ssm_conv``/``ssm_ssm``. Returns full logits
+    (Sp, V)."""
     layer_list = list(zip(kinds, layer_params))
     logits, payloads = lm.prefill_collect(cfg, misc, layer_list, tokens,
                                           plain=plain)
@@ -191,22 +233,30 @@ def paged_prefill(cfg: ModelConfig, kinds, misc, layer_params, tokens,
     nb = block_ids.shape[0]
     pad = nb * bs - tokens.shape[1]
     ids = block_ids.long()
-    if nb > 0:
-        for i, payload in enumerate(payloads):
-            for pool, t in _payload_rows(payload, pool_k, pool_v, 0):
-                if pad > 0:
-                    t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
-                pool[i, ids] = t.reshape(nb, bs, *t.shape[1:]).to(pool.dtype)
+    ssm_li = 0
+    for i, payload in enumerate(payloads):
+        for pool, t in _payload_rows(payload, pool_k, pool_v, 0) \
+                if nb > 0 else ():
+            if pad > 0:
+                t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+            pool[i, ids] = t.reshape(nb, bs, *t.shape[1:]).to(pool.dtype)
+        if "ssm_conv" in payload:
+            ssm_conv[ssm_li, slot] = payload["ssm_conv"][0]
+            ssm_ssm[ssm_li, slot] = payload["ssm_ssm"][0]
+            ssm_li += 1
     return logits[0]
 
 
 def _payload_rows(payload, pool_k, pool_v, row=None):
     """(pool, rows) pairs of one layer's prefill payload, batch row ``row``
-    (all rows when None), shaped (..., S, KVH, Dh): k and v for GQA; for
-    MLA, the latent rows as the one kv head of ``pool_k``."""
+    (all rows when None), shaped (..., S, KVH, Dh): k and v for GQA and
+    hybrid; for MLA, the latent rows as the one kv head of ``pool_k``;
+    none for an SSM layer."""
     sel = (lambda t: t if row is None else t[row])
     if "latent" in payload:
         return ((pool_k, sel(payload["latent"]).unsqueeze(-2)),)
+    if "k" not in payload:
+        return ()
     return ((pool_k, sel(payload["k"])), (pool_v, sel(payload["v"])))
 
 
@@ -383,17 +433,19 @@ class ModelExec:
 
     @torch.no_grad()
     def decode(self, layer_list, tokens, pos, pool_k, pool_v, tables,
-               kvq=None, *, plain: bool = False):
+               ssm_conv=None, ssm_ssm=None, kvq=None, *, plain: bool = False):
         return paged_decode_step(self.cfg, self.kinds, self.specs, self.misc,
                                  self._absorbed(layer_list), tokens, pos,
-                                 pool_k, pool_v, tables, kvq, plain=plain)
+                                 pool_k, pool_v, tables, ssm_conv, ssm_ssm,
+                                 kvq, plain=plain)
 
     @torch.no_grad()
-    def prefill(self, layer_list, tokens, pool_k, pool_v, block_ids, *,
+    def prefill(self, layer_list, tokens, pool_k, pool_v, block_ids,
+                ssm_conv=None, ssm_ssm=None, slot: int = 0, *,
                 plain: bool = False):
         return paged_prefill(self.cfg, self.kinds, self.misc,
                              self._lp(layer_list), tokens, pool_k, pool_v,
-                             block_ids, plain=plain)
+                             block_ids, ssm_conv, ssm_ssm, slot, plain=plain)
 
     @torch.no_grad()
     def prefill_batch(self, layer_list, tokens, pool_k, pool_v, tables, lens,

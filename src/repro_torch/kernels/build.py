@@ -23,8 +23,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("wna16_gemm", "paged_attention", "paged_chunk",
-           "paged_attention_mla")
+SOURCES = ("wna16_gemm", "wna16_gemm_narrow", "paged_attention",
+           "paged_chunk", "paged_attention_mla")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

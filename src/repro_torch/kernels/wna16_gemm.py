@@ -1,5 +1,7 @@
 """wNa16 GEMM on the card: the launch planner and the wrapper of
-``csrc/wna16_gemm.cu``.
+``csrc/wna16_gemm.cu`` and ``csrc/wna16_gemm_narrow.cu`` (one kernel
+template, ``csrc/wna16_gemm.cuh``: the first for an N whose packed rows are
+multiples of 16 bytes, the second for any other N).
 
 ``wna16_gemm`` launches the hand-written tensor-core kernel and takes only
 CUDA tensors; its plain torch version is
@@ -9,7 +11,8 @@ owner of a launch's plan (row tile, splits of K, mma passes, the
 shared-memory ring and its bytes): the C side executes what it is given, and
 the planner refuses what the kernel is not built for, on any device.
 ``wna16_gemm.launches`` counts the calls that launched the kernel and
-``wna16_gemm.launches_by_m`` the same calls by :func:`m_bucket` of M.
+``wna16_gemm.launches_by_shape`` the same calls by (K, N, :func:`m_bucket`
+of M).
 """
 from __future__ import annotations
 
@@ -32,14 +35,15 @@ MAX_SPLITS = 8            # the portable cluster size
 RED_STRIDE = BN + 4       # floats a row of the split-reduce tile
 # a CTA's fixed cost (filling the ring, the cluster's reduction), in groups
 SPLIT_FILL = 5
-# (upper M, name) of the buckets of ``launches_by_m``; above the last: ">512"
+# (upper M, name) of the M buckets of ``launches_by_shape``; above the last:
+# ">512"
 M_BUCKETS = ((1, "1"), (8, "2-8"), (16, "9-16"), (64, "17-64"),
              (256, "65-256"), (512, "257-512"))
 _ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2}
 
 
 def m_bucket(M: int) -> str:
-    """The ``launches_by_m`` bucket of a launch with M rows."""
+    """The M bucket of a launch with M rows (``launches_by_shape``)."""
     for top, name in M_BUCKETS:
         if M <= top:
             return name
@@ -49,7 +53,9 @@ def m_bucket(M: int) -> str:
 @dataclass(frozen=True)
 class Plan:
     """One launch of the kernel; the fields up to ``smem`` are the C
-    struct ``Wna16Plan``, in its order. Offsets and strides are bytes."""
+    struct ``Wna16Plan``, in its order. Offsets and strides are bytes.
+    ``pk_vec`` picks the build (16: ``wna16_gemm.cu``, else the narrow
+    one), which derives the same widths from N."""
     bm: int                # rows of x a CTA: 8 or 16 (decode), 64
     splits: int            # CTAs along K a tile, one thread block cluster
     groups_per_split: int
@@ -63,12 +69,14 @@ class Plan:
     off_inv: int
     stage_bytes: int
     smem: int
+    pk_vec: int            # bytes a copy of a packed row: 16, 8, 4, 2, 1
+    sz_vec: int            # bytes a copy of a scale / zero row: 16, 8, 4
     grid: tuple            # (N tiles, M tiles, splits)
 
 
 class _CPlan(ctypes.Structure):
     _fields_ = [(f, ctypes.c_int) for f in Plan.__dataclass_fields__
-                if f != "grid"]
+                if f not in ("pk_vec", "sz_vec", "grid")]
 
 
 def _refuse(msg: str) -> None:
@@ -92,7 +100,13 @@ def plan(M: int, K: int, N: int, *, bits: int, group: int, x_dtype: str,
     that hold two stages; ties take fewer splits. Stages: the deepest ring
     (at most four groups, and the groups a CTA walks plus one) whose shared
     memory still lets every CTA of the grid be resident at once, or as many
-    as the most CTAs an SM allow."""
+    as the most CTAs an SM allow. Columns: any N, as the TPU kernel takes;
+    the last of the ceil(N / 256) column tiles holds the tail. Copies: a
+    row of the packed weight (N bytes) or of the scales and zeros (4 N
+    bytes) starts on a boundary of the largest power of two, at most 16,
+    that divides its length, and the tile's 16-byte chunks of it are
+    copied in pieces of that width (``pk_vec``, ``sz_vec``): cp.async
+    takes 16, 8 and 4 bytes, plain loads 2 and 1."""
     if bits not in BITS:
         _refuse(f"bits={bits} is not built (takes {BITS})")
     if x_dtype not in DTYPES:
@@ -101,8 +115,8 @@ def plan(M: int, K: int, N: int, *, bits: int, group: int, x_dtype: str,
         _refuse(f"group={group} is not built (takes {GROUPS})")
     if K <= 0 or K % group:
         _refuse(f"group={group} must divide K={K}")
-    if N <= 0 or N % 64:
-        _refuse(f"N={N} is not built (takes multiples of 64)")
+    if N <= 0:
+        _refuse(f"N={N}: no columns")
     if M <= 0:
         _refuse(f"M={M}: nothing to launch")
     passes = 3 if x_dtype == "float32" else (2 if inv_act else 1)
@@ -150,27 +164,31 @@ def plan(M: int, K: int, N: int, *, bits: int, group: int, x_dtype: str,
     per_sm = min(per_sm, -(-tiles * splits // n_sm))
     stages = max(2, min(depth(per_sm), gps + 1))
     smem = max(stages * stage_bytes, red)
+    pk_vec = min(16, N & -N)
     return Plan(bm=bm, splits=splits, groups_per_split=gps,
                 passes=passes, stages=stages, x_stride=x_stride,
                 pk_stride=pk_stride, off_pk=off_pk, off_s=off_s, off_z=off_z,
                 off_inv=off_inv, stage_bytes=stage_bytes, smem=smem,
+                pk_vec=pk_vec, sz_vec=min(16, 4 * pk_vec),
                 grid=(-(-N // BN), -(-M // bm), splits))
 
 
 @functools.lru_cache(maxsize=4096)
 def _c_plan(p: Plan) -> _CPlan:
-    return _CPlan(*astuple(p)[:-1])
+    return _CPlan(*astuple(p)[:len(_CPlan._fields_)])
 
 
-def _lib():
-    lib = build.load("wna16_gemm")
-    fn = lib.morph_wna16_gemm
+def _entry(narrow: bool):
+    """(library, C entry point) of the 16-byte or the narrow build."""
+    name = "wna16_gemm_narrow" if narrow else "wna16_gemm"
+    lib = build.load(name)
+    fn = getattr(lib, "morph_" + name)
     if not fn.argtypes:      # ctypes would pass a Python int as a 32-bit int
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i,
                        ctypes.POINTER(_CPlan), p]
         fn.restype = ctypes.c_int
-    return lib
+    return lib, fn
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -221,20 +239,20 @@ def wna16_gemm(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         return out
     p = plan(M, K, N, bits=bits, group=group, x_dtype=x_dtype,
              inv_act=inv_act is not None, n_sm=build.sm_count(dev.index or 0))
-    lib = _lib()
+    lib, fn = _entry(p.pk_vec < 16)
     ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.morph_wna16_gemm(
+        rc = fn(
             x.data_ptr(), build.dtype_code(x.dtype), packed.data_ptr(),
             scales.data_ptr(), zeros.data_ptr(), ptr(inv_act), ptr(bias),
             out.data_ptr(), M, K, N, bits, group, ctypes.byref(_c_plan(p)),
             stream)
     build.check_rc(lib, rc, "wna16_gemm")
     wna16_gemm.launches += 1
-    wna16_gemm.launches_by_m[m_bucket(M)] += 1
+    wna16_gemm.launches_by_shape[K, N, m_bucket(M)] += 1
     return out
 
 
 wna16_gemm.launches = 0
-wna16_gemm.launches_by_m = collections.Counter()
+wna16_gemm.launches_by_shape = collections.Counter()

@@ -1,6 +1,12 @@
 """Decoder-only LM: the DENSE family (the paper's Llama-2 evaluation
-models) and the MOE family (DeepSeek-V3's ``mla_dense`` and ``mla_moe``
-layers, Llama-4 Maverick's alternating ``dense`` and ``moe`` layers).
+models), the MOE family (DeepSeek-V3's ``mla_dense`` and ``mla_moe``
+layers, Llama-4 Maverick's alternating ``dense`` and ``moe`` layers), the
+SSM family (Mamba-2's ``mamba`` layers: a norm and the SSD mixer of
+``models/mamba.py``) and the HYBRID family (Hymba's ``hybrid`` layers:
+attention and the SSD mixer side by side on the same normed input, their
+outputs normed and mixed as ``0.5 (beta_a rms(a) + beta_s rms(s))``, then
+an MLP; every layer but the config's global ones attends within its
+sliding window).
 
 Parameters keep the JAX package's tree: ``{"embed", "final_norm",
 "lm_head", "segments"}``, where ``segments`` holds one entry per maximal
@@ -11,8 +17,8 @@ dense one holds ``mlp``. The serving engine works on the **unrolled**
 per-layer list (``params_to_layer_list``), where each layer may
 independently be dense or quantized.
 
-The other families (SSM/hybrid, enc-dec, VLM) are not ported yet; they
-raise ``NotImplementedError`` naming their ROADMAP queue 1 item.
+The enc-dec and VLM families are not ported yet; they raise
+``NotImplementedError`` naming their ROADMAP queue 1 item.
 """
 from __future__ import annotations
 
@@ -20,8 +26,9 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from repro_torch.configs.base import DENSE, ENCDEC, MOE, VLM, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MO
 from repro_torch.quant import qlinear
 
@@ -38,7 +45,9 @@ _MOE_KINDS = ("moe", "mla_moe")
 
 
 def _kinds(cfg: ModelConfig) -> List[str]:
-    """The JAX package's layer-kind plan for the attention families."""
+    """The JAX package's layer-kind plan."""
+    if cfg.family in (SSM, HYBRID):
+        return ["mamba" if cfg.family == SSM else "hybrid"] * cfg.n_layers
     kinds = []
     for i in range(cfg.n_layers):
         if cfg.moe is not None:
@@ -53,13 +62,11 @@ def _kinds(cfg: ModelConfig) -> List[str]:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family in (DENSE, MOE):
+    if cfg.family in (DENSE, MOE, SSM, HYBRID):
         return
-    item = ("8, 'Encoder-decoder and VLM'" if cfg.family in (ENCDEC, VLM)
-            else "7, 'SSM and hybrid'")
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.family!r} is not ported to torch yet "
-        f"— ROADMAP.md queue 1, item {item}")
+        f"— ROADMAP.md queue 1, item 8, 'Encoder-decoder and VLM'")
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +130,20 @@ def _attn_apply(p, cfg, x, *, window):
 
 
 def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig, dtype):
+    dev = gen.device
+    if kind == "mamba":
+        return {"norm": L.norm_init(cfg.norm, cfg.d_model, dtype, dev),
+                "mixer": M.mamba_init(gen, cfg, dtype)}
+    if kind == "hybrid":
+        return {"ln1": L.norm_init(cfg.norm, cfg.d_model, dtype, dev),
+                "attn": L.gqa_init(gen, cfg, dtype),
+                "ssm": M.mamba_init(gen, cfg, dtype),
+                "norm_a": L.norm_init("rmsnorm", cfg.d_model, dtype, dev),
+                "norm_s": L.norm_init("rmsnorm", cfg.d_model, dtype, dev),
+                "beta_a": torch.ones((), dtype=torch.float32, device=dev),
+                "beta_s": torch.ones((), dtype=torch.float32, device=dev),
+                "ln2": L.norm_init(cfg.norm, cfg.d_model, dtype, dev),
+                "mlp": L.mlp_init(gen, cfg, dtype=dtype)}
     p = {"ln1": L.norm_init(cfg.norm, cfg.d_model, dtype, gen.device),
          "attn": _attn_init(gen, cfg, dtype)}
     if not cfg.parallel_block:
@@ -138,6 +159,14 @@ def block_apply(kind: str, p, cfg: ModelConfig, x, *, window: int = 0,
                 moe_cf: float = 1.25):
     """Full-sequence block. Returns (x, aux); aux carries the MoE layer's
     statistics and is empty without one."""
+    if kind == "mamba":
+        h = L.apply_norm(cfg.norm, p["norm"], x)
+        return x + M.mamba_apply(p["mixer"], cfg, h), {}
+    if kind == "hybrid":
+        h = L.apply_norm(cfg.norm, p["ln1"], x)
+        a = L.gqa_apply(p["attn"], cfg, h, window=window)
+        s = M.mamba_apply(p["ssm"], cfg, h)
+        return hybrid_ffn(p, cfg, x, a, s), {}
     h = L.apply_norm(cfg.norm, p["ln1"], x)
     attn_out = _attn_apply(p["attn"], cfg, h, window=window)
     if cfg.parallel_block:
@@ -151,7 +180,21 @@ def block_apply(kind: str, p, cfg: ModelConfig, x, *, window: int = 0,
 def block_prefill(kind: str, p, cfg: ModelConfig, x, *, window: int = 0,
                   plain: bool = False):
     """Full-seq block that also returns this layer's cache payload: GQA →
-    {"k", "v"}, MLA → {"latent"}."""
+    {"k", "v"}, MLA → {"latent"}, Mamba → its final state {"ssm_conv",
+    "ssm_ssm"}, hybrid → both {"k", "v"} and the state."""
+    if kind == "mamba":
+        h = L.apply_norm(cfg.norm, p["norm"], x)
+        y, st = M.mamba_apply(p["mixer"], cfg, h, return_state=True,
+                              plain=plain)
+        return x + y, {"ssm_conv": st["conv"], "ssm_ssm": st["ssm"]}
+    if kind == "hybrid":
+        h = L.apply_norm(cfg.norm, p["ln1"], x)
+        a, (k, v) = L.gqa_prefill(p["attn"], cfg, h, window=window,
+                                  plain=plain)
+        s, st = M.mamba_apply(p["ssm"], cfg, h, return_state=True,
+                              plain=plain)
+        return hybrid_ffn(p, cfg, x, a, s, plain=plain), \
+            {"k": k, "v": v, "ssm_conv": st["conv"], "ssm_ssm": st["ssm"]}
     h = L.apply_norm(cfg.norm, p["ln1"], x)
     if cfg.mla is not None:
         attn_out, latent = L.mla_prefill(p["attn"], cfg, h, plain=plain)
@@ -166,6 +209,20 @@ def block_prefill(kind: str, p, cfg: ModelConfig, x, *, window: int = 0,
     x = x + attn_out
     h2 = L.apply_norm(cfg.norm, p["ln2"], x)
     return x + ffn_apply(kind, p, cfg, h2, plain=plain)[0], payload
+
+
+def hybrid_ffn(p, cfg: ModelConfig, x, a, s, *, plain: bool = False):
+    """A hybrid block past its two mixers: the attention output ``a`` and
+    the SSM output ``s`` each rms-normed, weighted by the float32
+    ``beta_a``/``beta_s`` and averaged in float32 into the residual, then
+    the MLP."""
+    mixed = 0.5 * (p["beta_a"] * L.apply_norm("rmsnorm", p["norm_a"],
+                                               a).float()
+                   + p["beta_s"] * L.apply_norm("rmsnorm", p["norm_s"],
+                                                s).float())
+    x = x + mixed.to(x.dtype)
+    h2 = L.apply_norm(cfg.norm, p["ln2"], x)
+    return x + L.mlp_apply(p["mlp"], cfg, h2, plain=plain)
 
 
 def ffn_apply(kind: str, p, cfg: ModelConfig, h, *, moe_cf: float = -1.0,

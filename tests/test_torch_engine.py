@@ -105,12 +105,31 @@ def test_real_engine_matches_jax():
     assert dataclasses.asdict(rj) == dataclasses.asdict(rt)
 
 
+def test_sim_engine_books_a_prebuilt_plan():
+    """A sim engine handed a prebuilt swap plan books that plan's bytes
+    (``swap_rate.py`` hands it the real plan's per-layer bytes): its ledger
+    starts at the real-compute engine's weight bytes, and a swap frees what
+    the real engine's would."""
+    from repro_torch.core import build_swap_plan
+    params, _, tparams = llama_params()
+    sc = serving(params, TServingConfig)
+    plan = build_swap_plan(tcfg(), tparams, ORDER, serving=sc)
+    sim = TEngine(tcfg(), None, sc, TEC(compute="sim"), swap_order=ORDER,
+                  device="cpu", plan=plan)
+    real = TEngine(tcfg(), tparams, sc, TEC(compute="real"),
+                   swap_order=ORDER, device="cpu")
+    assert sim.plan is plan
+    assert sim.ledger.weight_bytes == real.ledger.weight_bytes
+    assert [sim.plan.freed_bytes(lv) for lv in plan.levels] == \
+        [real.plan.freed_bytes(lv) for lv in real.plan.levels]
+
+
 def test_engine_admits_moe_and_refuses_what_is_not_ported():
     """Configs with MoE layers (DeepSeek-V3 past its dense MLA layers,
     Llama-4 Maverick), reduced and at full width, build an engine with the
-    JAX package's layer kinds; the families not ported yet (SSM, hybrid,
-    enc-dec, VLM) raise at the engine, each naming its ROADMAP queue 1
-    item; and params on another device than the engine's raise instead of
+    JAX package's layer kinds, and so do Mamba-2 and Hymba (SSM and
+    hybrid); the families not ported yet (enc-dec, VLM) raise at the
+    engine, naming their ROADMAP queue 1 item; and params on another device than the engine's raise instead of
     moving."""
     from repro.configs import get_config, reduced
     from repro.models import lm as jlm
@@ -126,9 +145,14 @@ def test_engine_admits_moe_and_refuses_what_is_not_ported():
             eng = TEngine(t, None, sc, TEC(compute="sim"), device="cpu")
             assert list(eng.kinds) == jlm.layer_kinds(j)
             assert any(k.endswith("moe") for k in eng.kinds)
-    for cfg, item in ((MAMBA2_780M, "item 7"), (HYMBA_1P5B, "item 7"),
-                      (WHISPER_SMALL, "item 8"), (INTERNVL2_1B, "item 8")):
-        with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
+    for cfg, kind in ((MAMBA2_780M, "mamba"), (HYMBA_1P5B, "hybrid")):
+        jcfg_ = get_config(cfg.name)
+        for t, j in ((cfg, jcfg_), (t_reduced(cfg), reduced(jcfg_))):
+            eng = TEngine(t, None, sc, TEC(compute="sim"), device="cpu")
+            assert list(eng.kinds) == jlm.layer_kinds(j) == \
+                [kind] * t.n_layers
+    for cfg in (WHISPER_SMALL, INTERNVL2_1B):
+        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
             TEngine(cfg, None, sc, TEC(compute="sim"), device="cpu")
     pool = PagedKVPool(mla_moe, 8, 16, device="cpu")
     assert tuple(pool.k.shape) == (4, 8, 16, 1, 48)

@@ -489,7 +489,8 @@ def test_model_exec_steps_with_bundle_match_jax(bits):
         jll, jnp.asarray(tokens), jnp.asarray(pos), jp.k, jp.v,
         jnp.asarray(dtab), *z, jp.kv_quant_bundle())
     tl = tx.decode(tll, torch.from_numpy(tokens), torch.from_numpy(pos),
-                   tp.k, tp.v, torch.from_numpy(dtab), tp.kv_quant_bundle())
+                   tp.k, tp.v, torch.from_numpy(dtab),
+                   kvq=tp.kv_quant_bundle())
     np.testing.assert_allclose(to_np(tl)[:2], np.asarray(jl)[:2], **STEP_TOL)
     live = [1, 2, 3, 4, 5, 6]
     np.testing.assert_allclose(to_np(tp.k)[:, live],

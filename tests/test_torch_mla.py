@@ -34,7 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import MIN_GAP, record_gaps, to_np
+from torch_parity import MIN_GAP, record_gaps, same_free_ids, to_np
 
 from repro.configs import ServingConfig as JSC
 from repro.configs import reduced as j_reduced
@@ -123,8 +123,9 @@ def _scale():
 
 def test_family_check_admits_mla_and_moe_and_refuses_other_families():
     """The dense MLA cut, DeepSeek-V3 with its MoE layers (full width and
-    reduced) and Llama-4 Maverick have the JAX package's layer kinds; SSM,
-    hybrid, enc-dec and VLM configs raise, naming their queue 1 item."""
+    reduced) and Llama-4 Maverick have the JAX package's layer kinds, and so
+    do Mamba-2 and Hymba (SSM and hybrid), whose params build; enc-dec and
+    VLM configs raise, naming their queue 1 item."""
     from repro.configs.archs import LLAMA4_MAVERICK_400B as J_MAV
     from repro_torch.configs.archs import (HYMBA_1P5B, INTERNVL2_1B,
                                            LLAMA4_MAVERICK_400B,
@@ -142,10 +143,17 @@ def test_family_check_admits_mla_and_moe_and_refuses_other_families():
         ["dense", "moe"]
     p = tlm.init_params(t_reduced(T_DSV3), torch.Generator())
     assert "moe" in p["segments"][1][0] and "mlp" not in p["segments"][1][0]
-    for cfg, item in ((MAMBA2_780M, "item 7, 'SSM and hybrid'"),
-                      (HYMBA_1P5B, "item 7, 'SSM and hybrid'"),
-                      (WHISPER_SMALL, "item 8, 'Encoder-decoder and VLM'"),
-                      (INTERNVL2_1B, "item 8, 'Encoder-decoder and VLM'")):
+    from repro.configs.archs import HYMBA_1P5B as J_HYMBA
+    from repro.configs.archs import MAMBA2_780M as J_MAMBA
+    for cfg, jc in ((MAMBA2_780M, J_MAMBA), (HYMBA_1P5B, J_HYMBA)):
+        assert tlm.layer_kinds(cfg) == jlm.layer_kinds(jc)
+        assert tlm.layer_kinds(t_reduced(cfg)) == \
+            jlm.layer_kinds(j_reduced(jc))
+        p = tlm.init_params(t_reduced(cfg), torch.Generator())
+        assert len(tlm.params_to_layer_list(t_reduced(cfg), p)) == \
+            t_reduced(cfg).n_layers
+    item = "item 8, 'Encoder-decoder and VLM'"
+    for cfg in (WHISPER_SMALL, INTERNVL2_1B):
         with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
             tlm.layer_kinds(cfg)
         with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
@@ -472,7 +480,7 @@ def test_latent_pool_matches_jax():
         p.alloc.alloc(5)
         assert not p.resize(3)                       # live tail: refused
     assert (jp.copies, jp.num_blocks) == (tp.copies, tp.num_blocks)
-    assert jp.alloc.free == tp.alloc.free
+    assert same_free_ids(jp.alloc, tp.alloc)
     assert tuple(tp.v.shape) == (1,)
     jk, jv = jp.gather_blocks([1, 4, 6])
     tk, tv = tp.gather_blocks([1, 4, 6])

@@ -111,8 +111,8 @@ def test_plan_passes_follow_dtype_and_inv_act(x_dtype, inv):
     (dict(group=24), "group=24 is not built"),
     (dict(group=16), "group=16 is not built"),
     (dict(K=4160), "must divide K=4160"),
-    (dict(N=16), "N=16 is not built"),
-    (dict(N=4100), "N=4100 is not built"),
+    (dict(N=0), "N=0: no columns"),
+    (dict(M=0), "M=0: nothing to launch"),
     (dict(x_dtype="float64"), "x dtype float64 is not built"),
 ])
 def test_plan_refuses_what_is_not_built(kw, msg):
@@ -128,9 +128,96 @@ def test_wrapper_refuses_unbuilt_shapes_on_any_device():
     device check, so a CPU tensor names the shape, not the device; it
     never reaches the plain version."""
     x = torch.zeros((2, 64), dtype=torch.bfloat16)
-    qt = quantize_tensor(torch.randn((64, 16)), bits=4, group=32)
-    with pytest.raises(ValueError, match="N=16 is not built"):
-        k1.wna16_gemm(x, qt.packed, qt.scales, qt.zeros, bits=4, group=32)
+    qt = quantize_tensor(torch.randn((64, 16)), bits=4, group=16)
+    with pytest.raises(ValueError, match="group=16 is not built"):
+        k1.wna16_gemm(x, qt.packed, qt.scales, qt.zeros, bits=4, group=16)
+
+
+# the SSM and hybrid matmuls (chip_smoke's ``SSM_KN``: N = 6448, 6482 and
+# the others at their groups) and an odd N, which the TPU kernel takes at
+# an N block of 1
+ANY_N = sorted(set(chip_smoke.SSM_KN) | {(512, 77, 64), (256, 300, 32)})
+
+
+def _chunks(N, n0, vec, per_col):
+    """The pieces a CTA at column ``n0`` copies of one row of ``per_col``
+    bytes a column, as the kernel forms them: each of its 16-byte chunks
+    holds min(16, max(0, N * per_col - chunk start)) valid bytes, copied
+    in pieces of ``vec``. Returns the (row offset, valid) pieces."""
+    out = []
+    for c in range(k1.BN * per_col // 16):
+        col = n0 + c * 16 // per_col
+        valid = per_col * max(0, min(16 // per_col, N - col))
+        for o in range(0, 16, vec):
+            out.append((col * per_col + o, o < valid))
+    return out
+
+
+@pytest.mark.parametrize("K,N,group", ANY_N)
+def test_plan_takes_every_n(K, N, group):
+    """Every M from 1 to 1024, bf16 and float32 x: the plan covers N with
+    its last column tile holding the tail, and its copy widths tile each
+    packed and scale row: every piece starts on a boundary of its width
+    in device memory (rows of N and 4 N bytes from a 16-byte base), the
+    valid pieces cover each column's bytes exactly once, and no valid
+    piece reaches past N."""
+    for M in range(1, 1025):
+        for x_dtype in ("bfloat16", "float32"):
+            p = k1.plan(M, K, N, bits=4, group=group, x_dtype=x_dtype,
+                        inv_act=False)
+            assert (p.grid[0] - 1) * k1.BN < N <= p.grid[0] * k1.BN
+            assert p.grid[1] == -(-M // p.bm)
+    assert N % p.pk_vec == 0 and p.pk_vec in (1, 2, 4, 8, 16)
+    assert (2 * p.pk_vec > 16 or N % (2 * p.pk_vec))
+    assert p.sz_vec == min(16, 4 * p.pk_vec) and (4 * N) % p.sz_vec == 0
+    for per_col, vec in ((1, p.pk_vec), (4, p.sz_vec)):
+        seen = np.zeros(N * per_col, np.int32)
+        for bx in range(p.grid[0]):
+            for row in range(3):
+                for off, valid in _chunks(N, bx * k1.BN, vec, per_col):
+                    assert (row * N * per_col + off) % vec == 0
+                    if valid:
+                        assert off + vec <= N * per_col
+                        if row == 0:
+                            seen[off:off + vec] += 1
+        assert (seen == 1).all()
+
+
+def tile_numerics(x, packed, scales, zeros, *, bits, group):
+    """The kernel's column tiles: each CTA's 256 columns as it stages them
+    (packed, scale and zero columns past N zero-filled), the per-group
+    arithmetic of ``kernel_numerics`` on the whole tile, and only the
+    columns below N stored."""
+    N = packed.shape[-1]
+    out = torch.zeros((x.shape[0], N), dtype=x.dtype)
+    for n0 in range(0, N, k1.BN):
+        n = min(k1.BN, N - n0)
+        pad = (lambda t: torch.nn.functional.pad(t[:, n0:n0 + n],
+                                                 (0, k1.BN - n)))
+        tile = kernel_numerics(x, pad(packed), pad(scales), pad(zeros),
+                               bits=bits, group=group)
+        out[:, n0:n0 + n] = tile[:, :n]
+    return out
+
+
+@pytest.mark.parametrize("N", [77, 300, 328, 648])
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+def test_tail_tile_numerics_match_plain(N, x_dtype):
+    """The tail tile's arithmetic at an odd N, N = 2 mod 4 (Hymba's 6482),
+    N = 8 mod 16 and a tail of 136 columns (Mamba-2's 6448 leaves 48 past
+    the last 64): the zero-filled columns add nothing, against
+    ``ref.wna16_ref``, int4 and int8."""
+    rng = np.random.default_rng(N)
+    M, K, group = 3, 128, 32
+    for bits in (4, 8):
+        w = rng.standard_normal((K, N)).astype(np.float32) * K ** -0.5
+        qt = quantize_tensor(torch.from_numpy(w), bits=bits, group=group)
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                             ).to(DTYPES[x_dtype])
+        args = (x, qt.packed, qt.scales, qt.zeros)
+        got = tile_numerics(*args, bits=bits, group=group)
+        want = ref.wna16_ref(*args, bits=bits, group=group)
+        chip_smoke.check_close(f"tail N={N} int{bits} {x_dtype}", got, want)
 
 
 @pytest.mark.parametrize("M,name", [(1, "1"), (2, "2-8"), (8, "2-8"),

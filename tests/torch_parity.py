@@ -55,6 +55,15 @@ def serving(params, cls):
                kv_resize_step_frac=0.25)
 
 
+def same_free_ids(jax_alloc, torch_alloc) -> bool:
+    """The two allocators hold the same free block ids (the port's keeps
+    its never-allocated tail as a range, so it is compared by count and
+    membership)."""
+    free = torch_alloc.free_ids()
+    return (len(jax_alloc.free) == torch_alloc.n_free
+            and all(b in free for b in jax_alloc.free))
+
+
 def _top2_gap(row):
     top = torch.topk(row.float(), 2).values
     return float(top[0] - top[1])
