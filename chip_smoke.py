@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``src/repro_torch/kernels/build`` and runs twelve phases, each of which
+``src/repro_torch/kernels/build`` and runs fourteen phases, each of which
 raises on failure:
 
 1. device: the card's name and power limit, torch/CUDA versions, and the
@@ -17,7 +17,9 @@ raises on failure:
    DeepSeek-V3 and Llama-4 Maverick (M 1, 8, 64) and at the SSM and
    hybrid layers' of Mamba-2 and Hymba (M 1, 8, 256; N = 6448 and 6482
    among them, whose rows are no multiple of 64 or, for 6482, of 16
-   bytes), its main case at one M
+   bytes) and at Whisper-small's decoder and InternVL2-1B's (M 1, 8, 256;
+   (768, 768) also at M 6000, the cross-attention k / v of
+   ``start_cache``), its main case at one M
    of each
    M bucket of its launch count, and held at odd M, with inv_act and a bias,
    float32 and float16 x and groups of 64 and 32; its bound at the mma
@@ -89,7 +91,21 @@ raises on failure:
    ``mamba`` layers, the same trace at ``MAMBA_RPS`` requests a second
    (no KV blocks: only queue delay trips the controller), every swapped
    matmul through K1;
-12. Mamba-2 step parity, as in 10, on all 48 layers.
+12. Mamba-2 step parity, as in 10, on all 48 layers;
+13. Whisper-small through the model API at full width (12 encoder and 12
+   decoder layers, d 768, 12 heads of 64, d_ff 3072, vocab 51865, 1500
+   frames of 768), bf16 weights from a seeded generator: ``encode`` of 4
+   frame batches, ``start_cache`` and 32 greedy ``decode_step`` calls at the
+   bf16 decoder (held against ``decode_forward``'s teacher-forced logits)
+   and at an all-int4 decoder, every matmul of which goes through K1
+   (kernel route fed the plain route's tokens and held against it step by
+   step);
+14. InternVL2-1B through the model API at full width (24 layers, d 896,
+   14 / 2 heads of 64, d_ff 4864, vocab 151655, 256 image tokens of 1024
+   through the projector): the LIS profile with the image input (int4
+   variants through K1), then ``lm.forward_unrolled`` and a prefill of the
+   image + text prompt into ``lm.init_cache`` with 16 decode steps, at
+   levels 0 and 24, kernels against plain versions.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It exits non-zero, with no ``ok`` line, when there is no CUDA device, when
@@ -234,6 +250,20 @@ SSM_KN = ((1536, 6448, 128), (3072, 1536, 128), (1600, 6482, 64),
           (1600, 5504, 64), (5504, 1600, 128))
 SSM_M = (1, 8, 256)
 SSM_WNA16_CASES = [(K, N, 4, SSM_M, SSM_M) for K, N, _ in SSM_KN]
+# the matmuls of a swapped Whisper-small decoder layer (d 768, 12 heads of
+# 64, d_ff 3072: wq / wk / wv / wo of self- and cross-attention, the
+# cross-attention's k / v over the encoder states, MLP up, down) and of an
+# InternVL2-1B layer (d 896, 14 / 2 heads of 64: wq / wo (896, 896), wk /
+# wv (896, 128); MLP up / gate (896, 4864), down), int4 group 128; decode
+# M is the batch (4 and 2 sequences) and prefill M up to 2 x 288 rows. The
+# cross-attention's k / v of ``encdec.start_cache`` run at M = 4 x 1500
+# frames: held, not timed
+ENCDEC_VLM_KN = ((768, 768), (768, 3072), (3072, 768), (896, 896),
+                 (896, 128), (896, 4864), (4864, 896))
+CROSS_KV_M = 6000
+ENCDEC_VLM_WNA16_CASES = [
+    (K, N, 4, SSM_M + ((CROSS_KV_M,) if (K, N) == (768, 768) else ()),
+     SSM_M) for K, N in ENCDEC_VLM_KN]
 K1_BUCKET_M = {"1": 1, "2-8": 8, "9-16": 16, "17-64": 64, "65-256": 256,
                "257-512": 512, ">512": 1024}
 K1_MAIN = (4096, 11008, 4)
@@ -1515,6 +1545,273 @@ def maverick_phase(torch, counters):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 13 and 14: the model API's encoder-decoder and VLM paths
+# ---------------------------------------------------------------------------
+def _k1_reset():
+    from repro_torch.kernels.wna16_gemm import wna16_gemm
+    wna16_gemm.launches = 0
+    wna16_gemm.launches_by_shape.clear()
+
+
+def _k1_none(what):
+    """Fail unless K1 launched no time since ``_k1_reset``: a plain route
+    that launched the kernel would hold the kernel against itself."""
+    from repro_torch.kernels.wna16_gemm import wna16_gemm
+    if wna16_gemm.launches:
+        raise AssertionError(f"{what}: the plain route launched K1 "
+                             f"{wna16_gemm.launches} times")
+
+
+def _k1_log(what, k1_shapes):
+    """Log K1's launches since ``_k1_reset`` by shape and M bucket, with
+    their estimated device time; returns the launch count."""
+    from repro_torch.kernels.wna16_gemm import wna16_gemm
+    by = dict(wna16_gemm.launches_by_shape)
+    shapes = collections.Counter()
+    for (K, N, _), n in by.items():
+        shapes[f"{K}x{N}"] += n
+    est, untimed = _k1_estimate(by, k1_shapes)
+    log(f"  {what}: K1 launches {wna16_gemm.launches}, by M {_by_bucket(by)}"
+        f", by shape {dict(shapes)}, by (K, N, M bucket) "
+        f"{ {f'{k[0]}x{k[1]} {k[2]}': n for k, n in sorted(by.items())} }; "
+        f"estimated K1 device time {est:.2f} ms"
+        + (f"; shapes the kernel phase did not time {untimed}"
+           if untimed else ""))
+    return wna16_gemm.launches
+
+
+def _logits_close(torch, what, got, want):
+    """Hold ``got`` within ``LOGIT_TOL`` x max|want| of ``want``; returns
+    the largest gap over that scale."""
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    if not (err <= LOGIT_TOL * scale) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: max|logit diff| {err:.4e} past "
+                             f"{LOGIT_TOL} x max|logit| {scale:.3f}")
+    return err / scale
+
+
+WHISPER_B, WHISPER_STEPS = 4, 32
+
+
+def whisper_phase(torch, k1_shapes):
+    """Whisper-small at full width (12 encoder and 12 decoder layers, d
+    768, 12 heads of 64, d_ff 3072, vocab 51865, 1500 frames of 768), bf16
+    weights from a seeded generator: ``encode`` of 4 seeded frame batches,
+    then ``init_cache`` + ``start_cache`` + 32 greedy ``decode_step``
+    calls, at the bf16 decoder and at an all-int4 one (each decoder
+    layer's tree quantized with the kernel flag, as ``build_swap_plan``
+    quantizes a layer, then restacked). At bf16 the steps are held against
+    ``decode_forward``'s teacher-forced logits; at int4 the kernel route
+    (K1 on every decoder matmul, the cross-attention k / v at M = 6000
+    included) is fed the plain route's tokens and held against it step by
+    step. Fails unless K1 launched in the int4 run. Returns its K1
+    launches."""
+    from repro_torch.configs.archs import WHISPER_SMALL as cfg
+    from repro_torch.models import encdec, get_model
+    from repro_torch.models import param_bytes as nbytes
+    from repro_torch.models.lm import _index, _stack
+    from repro_torch.quant import quantize_tree
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init_params(cfg, gen)
+    frames = torch.randn((WHISPER_B, cfg.encoder_seq, cfg.frontend_dim),
+                         generator=gen, device="cuda").to(torch.bfloat16)
+    first = torch.randint(0, cfg.vocab, (WHISPER_B, 1), generator=gen,
+                          device="cuda")
+    dec = params["dec_blocks"]
+    q_dec = _stack([quantize_tree(_index(dec, i), bits=4, use_kernel=True)
+                    for i in range(cfg.n_layers)])
+    params_q = dict(params, dec_blocks=q_dec)
+    torch.cuda.synchronize()
+    log(f"model: {cfg.name} enc x{cfg.n_encoder_layers} dec x{cfg.n_layers} "
+        f"d={cfg.d_model} H={cfg.n_heads} d_ff={cfg.d_ff} vocab={cfg.vocab} "
+        f"frames {cfg.encoder_seq}x{cfg.frontend_dim} {cfg.dtype}; params "
+        f"{nbytes(params) / 1e9:.3f} GB, the int4 decoder "
+        f"{nbytes(q_dec) / 1e9:.3f} GB against {nbytes(dec) / 1e9:.3f} GB "
+        f"({time.perf_counter() - t0:.1f} s incl. init and quantization)")
+
+    def run(p, tokens=None, plain=False):
+        """encode + start_cache + 32 steps into a fresh cache; greedy
+        unless ``tokens`` (B, steps) are given; ``plain``: every K1 call
+        takes its plain version. Returns (logits (B, steps, V), fed
+        tokens, encoder states)."""
+        enc = encdec.encode(cfg, p, frames, plain=plain)
+        cache = api.start_cache(cfg, p, enc, api.init_cache(
+            cfg, WHISPER_B, WHISPER_STEPS + 8, device="cuda"), plain=plain)
+        tok, fed, out = first, [], []
+        for t in range(WHISPER_STEPS):
+            if tokens is not None:
+                tok = tokens[:, t:t + 1]
+            fed.append(tok)
+            lg, cache = api.decode_step(cfg, p, cache, tok, plain=plain)
+            out.append(lg)
+            tok = lg.argmax(-1)
+        return torch.cat(out, 1), torch.cat(fed, 1), enc
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lg, fed, enc = run(params)
+        teacher = encdec.decode_forward(cfg, params, fed, enc)
+        torch.cuda.synchronize()
+        gap = _logits_close(torch, "whisper bf16: steps vs teacher-forced",
+                            lg, teacher)
+        log(f"  bf16 decoder: {WHISPER_STEPS} steps of {WHISPER_B} "
+            f"sequences {time.perf_counter() - t0:.2f} s wall (incl. encode "
+            f"and start_cache); steps vs decode_forward's teacher-forced "
+            f"logits: max gap {gap:.4e} of max|logit| (tol {LOGIT_TOL})")
+        _k1_reset()
+        t0 = time.perf_counter()
+        want, fed, _ = run(params_q, plain=True)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        _k1_none("whisper int4 decoder")
+        t0 = time.perf_counter()
+        got, _, _ = run(params_q, fed)
+        torch.cuda.synchronize()
+        t_kernel = time.perf_counter() - t0
+        n = _k1_log("int4 decoder, kernel route", k1_shapes)
+        gaps = [_logits_close(torch, f"whisper int4 step {t}", got[:, t],
+                              want[:, t]) for t in range(WHISPER_STEPS)]
+        same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"  int4 decoder: kernel route {t_kernel:.2f} s, plain route "
+        f"{t_plain:.2f} s wall (each incl. encode and start_cache); per-step "
+        f"max gap of max|logit|: largest {max(gaps):.4e}, median "
+        f"{statistics.median(gaps):.4e} (tol {LOGIT_TOL}); argmax agreement "
+        f"{same:.3f}; torch.cuda.max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if n <= 0:
+        raise AssertionError("Whisper phase: K1 never launched at the int4 "
+                             "decoder")
+    return n
+
+
+VLM_CALIB_TEXT, VLM_DECODE_STEPS = 32, 16
+
+
+def internvl_phase(torch, k1_shapes):
+    """InternVL2-1B at full width (24 layers, d 896, 14 / 2 heads of 64,
+    d_ff 4864, vocab 151655, 256 image tokens of 1024 through the
+    projector), bf16 weights from a seeded generator: the LIS profile with
+    the frontend on a calibration batch of 2 x (256 image + 32 text)
+    tokens, its layer variants int4 through K1; ``build_swap_plan`` on that
+    order; ``lm.forward_unrolled`` with the frontend at levels 0 and 24,
+    and ``prefill_collect`` of that prompt into ``lm.init_cache`` then 16
+    text-token decode steps at both levels (``lm.decode_step`` at level 0,
+    ``decode_step_unrolled`` over the per-layer caches at 24), the kernel
+    route held against the plain route (fed the plain route's tokens).
+    Fails unless K1 launched at level 24. Returns its K1 launches."""
+    from repro_torch.configs.archs import INTERNVL2_1B as cfg
+    from repro_torch.core import build_swap_plan, profile_swap_sequence
+    from repro_torch.models import dummy_inputs, lm, param_bytes
+    from repro_torch.models.lm import _index
+    from repro_torch.quant import quantize_tree
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm.init_params(cfg, gen)
+    inputs = dummy_inputs(cfg, 2, cfg.n_image_tokens + VLM_CALIB_TEXT,
+                          gen=gen, device="cuda")
+    tokens, fe = inputs["tokens"], inputs["frontend"]
+    layers = lm.params_to_layer_list(cfg, params)
+    bank = [quantize_tree(lp, bits=4, use_kernel=True) for _, lp in layers]
+    torch.cuda.synchronize()
+    log(f"model: {cfg.name} x{cfg.n_layers} d={cfg.d_model} H={cfg.n_heads} "
+        f"KVH={cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab} image "
+        f"tokens {cfg.n_image_tokens}x{cfg.frontend_dim} {cfg.dtype}; "
+        f"params {param_bytes(params) / 1e9:.3f} GB "
+        f"({time.perf_counter() - t0:.1f} s incl. init and the int4 "
+        f"variants)")
+    _k1_reset()
+    t0 = time.perf_counter()
+    prof = profile_swap_sequence(cfg, params, tokens, bits=4, frontend=fe,
+                                 quant_bank=bank)
+    torch.cuda.synchronize()
+    log(f"  LIS profile with the frontend (calibration 2 x ({cfg.n_image_tokens}"
+        f" image + {VLM_CALIB_TEXT} text) tokens): {time.perf_counter() - t0:.2f}"
+        f" s wall; order {prof.order}")
+    n = _k1_log("LIS profile", k1_shapes)
+    plan = build_swap_plan(cfg, params, prof.order, levels=(0, cfg.n_layers),
+                           use_kernel=True)
+    deepest = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+
+    def decode(lv, tok0, feed=None, plain=False):
+        """The image + text prompt's k/v in a fresh ``lm.init_cache``, then
+        16 steps (greedy unless ``feed``): level 0 through the stacked
+        API, the deepest level over per-layer caches; ``plain``: every K1
+        call takes its plain version. Returns (logits, fed)."""
+        layer_list = plan.layer_list(lv)
+        _, pay = lm.prefill_collect(cfg, params, layer_list, tokens,
+                                    frontend=fe, plain=plain)
+        P = tokens.shape[1] + cfg.n_image_tokens
+        cache = lm.init_cache(cfg, 2, P + VLM_DECODE_STEPS, device="cuda")
+        (seg,) = cache["segments"]            # one run of 24 dense layers
+        seg[0]["k"][:, :, :P] = torch.stack([x["k"] for x in pay])
+        seg[0]["v"][:, :, :P] = torch.stack([x["v"] for x in pay])
+        cache["pos"][:] = P
+        caches = [_index(seg[0], i) for i in range(cfg.n_layers)]
+        pos = cache["pos"]
+        tok, fed, out = tok0, [], []
+        for t in range(VLM_DECODE_STEPS):
+            if feed is not None:
+                tok = feed[:, t:t + 1]
+            fed.append(tok)
+            if lv == 0:
+                lg, cache = lm.decode_step(cfg, params, cache, tok,
+                                           plain=plain)
+            else:
+                lg, caches = lm.decode_step_unrolled(cfg, params, layer_list,
+                                                     caches, pos, tok,
+                                                     plain=plain)
+                pos = pos + 1
+            out.append(lg)
+            tok = lg.argmax(-1)
+        return torch.cat(out, 1), torch.cat(fed, 1)
+
+    tok0 = tokens[:, -1:]
+    with torch.no_grad():
+        for lv in (0, deepest):
+            layer_list = plan.layer_list(lv)
+            _k1_reset()
+            want = lm.forward_unrolled(cfg, params, layer_list, tokens,
+                                       frontend=fe, plain=True)
+            t0 = time.perf_counter()
+            want_d, fed = decode(lv, tok0, plain=True)
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0
+            _k1_none(f"internvl level {lv}")
+            _k1_reset()
+            got = lm.forward_unrolled(cfg, params, layer_list, tokens,
+                                      frontend=fe)
+            t0 = time.perf_counter()
+            got_d, _ = decode(lv, tok0, fed)
+            torch.cuda.synchronize()
+            t_kernel = time.perf_counter() - t0
+            k1 = _k1_log(f"level {lv}, kernel route (forward, prefill, "
+                         f"decode)", k1_shapes)
+            n += k1
+            g_fwd = _logits_close(torch, f"internvl forward level {lv}", got,
+                                  want)
+            gaps = [_logits_close(torch, f"internvl decode level {lv} step "
+                                  f"{t}", got_d[:, t], want_d[:, t])
+                    for t in range(VLM_DECODE_STEPS)]
+            log(f"  level {lv}: forward with the frontend ({tuple(got.shape)}"
+                f" logits) max gap {g_fwd:.4e} of max|logit|; prefill + "
+                f"{VLM_DECODE_STEPS} decode steps: kernel route "
+                f"{t_kernel:.2f} s, plain route {t_plain:.2f} s wall, "
+                f"largest per-step gap {max(gaps):.4e} (tol {LOGIT_TOL})")
+            if lv == deepest and k1 <= 0:
+                raise AssertionError("InternVL2 phase: K1 never launched at "
+                                     "the all-int4 level")
+    log(f"  torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+        f" GB")
+    return n
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1563,6 +1860,10 @@ def main() -> int:
     log("K1 at the SSM and hybrid layers' matmul shapes (Mamba-2 780M, Hymba "
         "1.5B: N = 6448 and 6482, groups 128 / 64)")
     wna16_cases(torch, timer, results, SSM_WNA16_CASES)
+    log("K1 at Whisper-small's decoder and InternVL2-1B's matmul shapes "
+        f"(int4, group 128; (768, 768) held at M = {CROSS_KV_M}, the "
+        "cross-attention k / v of start_cache at 4 x 1500 frames)")
+    wna16_cases(torch, timer, results, ENCDEC_VLM_WNA16_CASES)
     log("K1's bounds at the mma passes of its launch plan (bf16 "
         f"{BF16_FLOP_S / 1e12:.0f} TFLOP/s, HBM {HBM_BYTES_S / 1e12:.2f} TB/s)")
     k1_shapes = wna16_bounds(results)
@@ -1708,6 +2009,26 @@ def main() -> int:
         mcfg, mparams, morder, levels=(0, mcfg.n_layers), use_kernel=True))
     log(f"Mamba-2 step parity {time.perf_counter() - t0:.1f} s")
     del mparams
+
+    # 13-14. the model API's encoder-decoder and VLM paths at full width:
+    # Whisper-small's encode + cached decode (K1 on its int4 decoder) and
+    # InternVL2-1B's image prompt (LIS profile, forward, prefill + decode)
+    t0 = time.perf_counter()
+    log(f"Whisper-small phase (encode, start_cache, {WHISPER_STEPS} decode "
+        f"steps of {WHISPER_B} sequences; kernels vs plain, tolerance "
+        f"{LOGIT_TOL} x max|logit|)")
+    whisper_phase(torch, k1_shapes)
+    log(f"Whisper-small phase {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("InternVL2-1B phase (LIS profile with the frontend, forward, prefill "
+        f"+ {VLM_DECODE_STEPS} decode steps at levels 0 and 24; kernels vs "
+        f"plain, tolerance {LOGIT_TOL} x max|logit|)")
+    internvl_phase(torch, k1_shapes)
+    log(f"InternVL2-1B phase {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # the representative main-path case of each kernel, errors over all cases
     main_case = {"wna16_gemm": "wna16 M=8 K=4096 N=11008 int4",

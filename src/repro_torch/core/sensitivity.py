@@ -31,10 +31,11 @@ def mean_cosine(a, b, eps: float = 1e-8) -> float:
     return float(torch.mean(num / den))
 
 
-def forward_capture(cfg: ModelConfig, params, layer_list, tokens):
+def forward_capture(cfg: ModelConfig, params, layer_list, tokens, *,
+                    frontend=None):
     """Run the unrolled stack, recording each layer's (input, output) and the
     final pre-unembed hidden state."""
-    x = lm.embed_tokens(cfg, params, tokens)
+    x = lm.embed_tokens(cfg, params, tokens, frontend)
     ios = []
     for i, (kind, lp) in enumerate(layer_list):
         x_in = x
@@ -44,8 +45,9 @@ def forward_capture(cfg: ModelConfig, params, layer_list, tokens):
     return x, ios
 
 
-def final_hidden(cfg: ModelConfig, params, layer_list, tokens):
-    x = lm.embed_tokens(cfg, params, tokens)
+def final_hidden(cfg: ModelConfig, params, layer_list, tokens, *,
+                 frontend=None):
+    x = lm.embed_tokens(cfg, params, tokens, frontend)
     for i, (kind, lp) in enumerate(layer_list):
         x, _ = lm.block_apply(kind, lp, cfg, x,
                               window=lm.layer_window(cfg, i), moe_cf=-1.0)
@@ -68,12 +70,13 @@ class SwapProfile:
 def profile_swap_sequence(cfg: ModelConfig, params, calib_tokens, *,
                           bits: int = 4, group: int = 128,
                           alpha1: float = 0.25, alpha2: float = 0.25,
-                          beta: float = 0.5,
+                          beta: float = 0.5, frontend=None,
                           quant_bank: Optional[list] = None) -> SwapProfile:
     """Algorithm 1: greedy LIS-ordered swap sequence (runs on the params'
     device, under ``torch.no_grad``).
 
-    ``calib_tokens``: (B, S) token ids on the params' device.
+    ``calib_tokens``: (B, S) token ids on the params' device;
+    ``frontend``: a VLM's patch embeddings for them.
     ``quant_bank``: optional precomputed per-layer quantized param trees
     (reused from the actuator's variant bank to avoid re-quantizing).
     """
@@ -84,7 +87,8 @@ def profile_swap_sequence(cfg: ModelConfig, params, calib_tokens, *,
                       for _, lp in layer_list]
 
     # --- input-independent local metrics (lines 1-4) -----------------------
-    _, ios = forward_capture(cfg, params, layer_list, calib_tokens)
+    _, ios = forward_capture(cfg, params, layer_list, calib_tokens,
+                             frontend=frontend)
     lts = [mean_cosine(x_out, x_in) for (x_in, x_out) in ios]
     lrs = []
     for i, (kind, lp) in enumerate(layer_list):
@@ -94,7 +98,8 @@ def profile_swap_sequence(cfg: ModelConfig, params, calib_tokens, *,
         lrs.append(mean_cosine(ios[i][1], x_q))
 
     # --- greedy, state-aware selection (lines 5-14) -------------------------
-    base_hidden = final_hidden(cfg, params, layer_list, calib_tokens)
+    base_hidden = final_hidden(cfg, params, layer_list, calib_tokens,
+                               frontend=frontend)
     current = list(layer_list)
     Q: List[int] = []
     lis_trace: List[float] = []
@@ -106,7 +111,8 @@ def profile_swap_sequence(cfg: ModelConfig, params, calib_tokens, *,
                 continue
             trial = list(current)
             trial[j] = (current[j][0], quant_bank[j])
-            h = final_hidden(cfg, params, trial, calib_tokens)
+            h = final_hidden(cfg, params, trial, calib_tokens,
+                             frontend=frontend)
             mds = mean_cosine(prev_hidden, h)
             lis = alpha1 * lts[j] + alpha2 * lrs[j] + beta * mds
             if lis > best_lis:

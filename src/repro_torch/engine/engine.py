@@ -27,7 +27,7 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, ServingConfig
+from repro_torch.configs.base import VLM, ModelConfig, ServingConfig
 from repro_torch.core import (KVQuantActuator, MemoryLedger, MorphingActuator,
                         MorphingController, KVResizer, ServingMonitor,
                         Telemetry, build_swap_plan, front_to_back_order)
@@ -219,6 +219,11 @@ class MorphServeEngine:
         # sim engine given a real model's per-layer bytes)
         # resolves "cuda" to the current card (and raises without one)
         self.device = torch.empty(0, device=device).device
+        if ecfg.compute == "real" and cfg.family == VLM:
+            # the JAX engine fails later, at its first whole-prompt
+            # prefill ("vlm needs patch embeddings")
+            raise ValueError(f"{cfg.name}: the engine takes no image input, "
+                             f"so a VLM serves only with compute='sim'")
         if ecfg.compute == "real":
             devs = {t.device for t in _tensors(params)}
             if devs != {self.device}:

@@ -1,0 +1,7 @@
+"""Launch-time settings. ``knobs`` holds the model code's tunable levers
+(attention tiles, the windowed-prefill switch), as in the JAX package.
+Read them as ``knobs.KNOBS`` at call time: ``set_knobs`` rebinds it."""
+from repro_torch.launch import knobs
+from repro_torch.launch.knobs import VARIANTS, Knobs, reset, set_knobs
+
+__all__ = ["knobs", "VARIANTS", "Knobs", "reset", "set_knobs"]

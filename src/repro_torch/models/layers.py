@@ -1,16 +1,27 @@
-"""Shared layer primitives of the dense decoders (GQA and DeepSeek's MLA),
-in torch.
+"""Shared layer primitives of the model zoo (GQA, DeepSeek's MLA, the
+MLPs), in torch.
 
 Every matmul goes through :func:`repro_torch.quant.qlinear.matmul`, so a
 layer executes the same way whether its weights are dense or
 MorphServe-swapped QTensors. Layouts follow the JAX package: weights are
 (K, N) and used as ``x @ W``; attention tensors are (B, S, H, Dh).
+
+Full-sequence attention goes through :func:`attention_core`, which picks
+the materialized, the blockwise (flash-style, online softmax) or the
+windowed path by the JAX package's rule and knobs
+(``repro_torch.launch.knobs``). ``gqa_decode`` and ``mla_decode`` are the
+single-token steps over a contiguous (B, Tmax, ...) cache, which they
+write in place, that the model API's ``decode_step`` runs; the serving
+engine decodes over its paged pool instead (``engine/model_exec.py``).
+All of it is plain torch, as it is plain JAX in the reference; a layer's
+``plain=True`` asks each quantized matmul for its kernel's plain version.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import knobs
 from repro_torch.quant import qlinear
 
 
@@ -86,8 +97,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention core
+# Attention cores
 # ---------------------------------------------------------------------------
+def _softcap(scores, cap):
+    if cap:
+        return torch.tanh(scores / cap) * cap
+    return scores
+
+
 def naive_attention(q, k, v, *, causal: bool, q_offset=0, window: int = 0,
                     kv_len=None, softcap: float = 0.0, scale: float = None):
     """Materialized-score attention.
@@ -104,23 +121,142 @@ def naive_attention(q, k, v, *, causal: bool, q_offset=0, window: int = 0,
     qg = q.reshape(B, S, KVH, G, D).to(torch.float32)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32))
     scores = scores * (D ** -0.5 if scale is None else scale)
-    if softcap:
-        scores = torch.tanh(scores / softcap) * softcap
+    scores = _softcap(scores, softcap)
     q_offset = torch.as_tensor(q_offset, device=dev).reshape(-1)  # (1|B,)
     qpos = q_offset[:, None] + torch.arange(S, device=dev)[None, :]
     kpos = torch.arange(T, device=dev)
     mask = torch.ones((qpos.shape[0], S, T), dtype=torch.bool, device=dev)
     if causal:
-        mask &= kpos[None, None, :] <= qpos[:, :, None]
+        mask = mask & (kpos[None, None, :] <= qpos[:, :, None])
     if window > 0:
-        mask &= kpos[None, None, :] > qpos[:, :, None] - window
-    if kv_len is not None:
-        mask &= kpos[None, None, :] < kv_len[:, None, None]
+        mask = mask & (kpos[None, None, :] > qpos[:, :, None] - window)
+    if kv_len is not None:                  # (B,): broadcasts a (1, S, T) mask
+        mask = mask & (kpos[None, None, :] < kv_len[:, None, None])
     mask = mask[:, None, None]                           # (B|1,1,1,S,T)
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(torch.float32))
     return out.to(q.dtype).reshape(B, S, H, v.shape[-1])
+
+
+def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
+                        q_chunk: int = None, kv_chunk: int = None,
+                        softcap: float = 0.0):
+    """Flash-style blockwise attention: never materializes (S, T); peak
+    activation is (B, KVH, G, q_chunk, kv_chunk). Online softmax over KV
+    chunks in float32, as the JAX package's ``lax.scan`` does. The chunks
+    default to ``knobs.KNOBS.q_chunk`` / ``kv_chunk`` and must divide S
+    and T."""
+    B, S, H, D = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KVH
+    q_chunk = min(q_chunk or knobs.KNOBS.q_chunk, S)
+    kv_chunk = min(kv_chunk or knobs.KNOBS.kv_chunk, T)
+    assert S % q_chunk == 0 and T % kv_chunk == 0
+    f32, dev = torch.float32, q.device
+    scale = D ** -0.5
+    qg = q.reshape(B, S // q_chunk, q_chunk, KVH, G, D)
+    kc = k.reshape(B, T // kv_chunk, kv_chunk, KVH, D)
+    vc = v.reshape(B, T // kv_chunk, kv_chunk, KVH, Dv)
+    outs = []
+    for qi in range(S // q_chunk):
+        qblk = qg[:, qi].to(f32)
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((B, KVH, G, q_chunk), -torch.inf, dtype=f32,
+                       device=dev)
+        l = torch.zeros((B, KVH, G, q_chunk), dtype=f32, device=dev)
+        acc = torch.zeros((B, KVH, G, q_chunk, Dv), dtype=f32, device=dev)
+        for ki in range(T // kv_chunk):
+            kpos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+            s = torch.einsum("bqkgd,btkd->bkgqt", qblk,
+                             kc[:, ki].to(f32)) * scale
+            s = _softcap(s, softcap)
+            msk = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                             device=dev)
+            if causal:
+                msk &= kpos[None, :] <= qpos[:, None]
+            if window > 0:
+                msk &= kpos[None, :] > qpos[:, None] - window
+            s = torch.where(msk, s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqt,btkd->bkgqd", p, vc[:, ki].to(f32))
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))          # (B, qc, KVH, G, Dv)
+    return torch.cat(outs, dim=1).reshape(B, S, H, Dv).to(q.dtype)
+
+
+def windowed_attention(q, k, v, *, window: int, q_chunk: int = 1024,
+                       softcap: float = 0.0):
+    """Sliding-window causal self-attention that only touches in-window
+    KV: K and V are left-padded with ``window`` zero rows and each query
+    chunk reads a (window + q_chunk) strip, so the work is proportional to
+    S·(window + q_chunk) instead of S². As in the JAX package, the
+    probabilities are cast to ``v.dtype`` before P·V."""
+    B, S, H, D = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    assert S == T, "windowed path is for self-attention prefill"
+    Dv = v.shape[-1]
+    G = H // KVH
+    q_chunk = min(q_chunk, S)
+    while S % q_chunk:
+        q_chunk //= 2
+    strip = window + q_chunk
+    kp = F.pad(k, (0, 0, 0, 0, window, 0))
+    vp = F.pad(v, (0, 0, 0, 0, window, 0))
+    dev = q.device
+    # query i sits at strip position window + i; key strip position j maps
+    # to the original position qs - window + j (padding where that is < 0)
+    i = torch.arange(q_chunk, device=dev)[:, None]
+    j = torch.arange(strip, device=dev)[None, :]
+    causal_win = (j <= window + i) & (j > i)
+    outs = []
+    for qs in range(0, S, q_chunk):
+        qgk = q[:, qs:qs + q_chunk].reshape(B, q_chunk, KVH, G, D)
+        kblk, vblk = kp[:, qs:qs + strip], vp[:, qs:qs + strip]
+        s = torch.einsum("bqkgd,btkd->bkgqt", qgk.to(torch.float32),
+                         kblk.to(torch.float32)) * (D ** -0.5)
+        s = _softcap(s, softcap)
+        msk = causal_win & (j >= max(window - qs, 0))
+        s = torch.where(msk, s, torch.full_like(s, -1e30))
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype), vblk)
+        outs.append(out.reshape(B, q_chunk, H, Dv))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def attention_core(q, k, v, *, causal: bool, q_offset=0, window: int = 0,
+                   kv_len=None, softcap: float = 0.0):
+    """The JAX package's choice of the materialized, blockwise or windowed
+    path: windowed for a windowed self-attention of at least 2048·4096
+    scores and S >= 2·window (``knobs.KNOBS.windowed_attn``), blockwise
+    for at least 2048·4096 scores with S and T multiples of 1024, else
+    materialized."""
+    S, T = q.shape[1], k.shape[1]
+    long = kv_len is None and S * T >= 2048 * 4096
+    if (knobs.KNOBS.windowed_attn and window > 0 and long and S == T
+            and S >= 2 * window):
+        return windowed_attention(q, k, v, window=window, softcap=softcap)
+    if long and S % 1024 == 0 and T % 1024 == 0:
+        return blockwise_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    return naive_attention(q, k, v, causal=causal, q_offset=q_offset,
+                           window=window, kv_len=kv_len, softcap=softcap)
+
+
+def _write_rows(cache, new, pos):
+    """Set row ``pos[b]`` of each sequence b of ``cache`` (B, Tmax, ...) to
+    ``new[b, 0]`` in place, the write index clamped into the cache as
+    ``lax.dynamic_update_slice`` clamps it; returns ``cache``."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = torch.clamp(pos.long(), 0, cache.shape[1] - 1)
+    cache[rows, at] = new[:, 0].to(cache.dtype)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -159,24 +295,67 @@ def gqa_project_qkv(p, cfg, x, positions, plain: bool = False):
     return q, k, v
 
 
-def gqa_prefill(p, cfg, x, *, window: int = 0, plain: bool = False):
-    """Full-sequence causal GQA attention that also returns (k, v) for
-    KV-cache capture. The JAX package switches to blockwise attention at
-    S·T >= 2048·4096; the port keeps the materialized path, which computes
-    the same function."""
+def gqa_prefill(p, cfg, x, *, window: int = 0, causal: bool = True,
+                plain: bool = False):
+    """Full-sequence GQA attention through :func:`attention_core` that
+    also returns (k, v) for KV-cache capture."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     q, k, v = gqa_project_qkv(p, cfg, x, positions, plain=plain)
-    out = naive_attention(q, k, v, causal=True, window=window,
-                          softcap=cfg.logit_softcap)
+    out = attention_core(q, k, v, causal=causal, window=window,
+                         softcap=cfg.logit_softcap)
     y = qlinear.matmul(out.reshape(B, S, -1), p["wo"], bias=p.get("bo"),
                        plain=plain)
     return y, (k, v)
 
 
-def gqa_apply(p, cfg, x, *, window: int = 0):
-    """Full-sequence causal GQA attention (prefill)."""
-    return gqa_prefill(p, cfg, x, window=window)[0]
+def _cross_q(p, cfg, x, plain: bool = False):
+    """The query of a cross-attention: projected, no rope."""
+    B, S, _ = x.shape
+    q = qlinear.matmul(x, p["wq"], bias=p.get("bq"), plain=plain)
+    return q.reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+
+
+def gqa_apply(p, cfg, x, *, window: int = 0, cross_kv=None,
+              causal: bool = True, plain: bool = False):
+    """Full-sequence GQA attention (train / prefill). ``cross_kv``: (k, v)
+    from an encoder for cross-attention (no rope, no mask)."""
+    if cross_kv is None:
+        return gqa_prefill(p, cfg, x, window=window, causal=causal,
+                           plain=plain)[0]
+    B, S, _ = x.shape
+    k, v = cross_kv
+    out = attention_core(_cross_q(p, cfg, x, plain), k, v, causal=False,
+                         softcap=cfg.logit_softcap)
+    return qlinear.matmul(out.reshape(B, S, -1), p["wo"], bias=p.get("bo"),
+                          plain=plain)
+
+
+def gqa_decode(p, cfg, x, cache, *, window: int = 0, cross_kv=None,
+               plain: bool = False):
+    """Single-token decode over a contiguous KV cache.
+
+    cache: {"k": (B, Tmax, KVH, Dh), "v": ..., "pos": (B,) int32}; x:
+    (B, 1, D). Self-attention writes the new token's k/v at row ``pos``
+    of the cache's own tensors (in place) and attends causally (within
+    ``window``); with ``cross_kv`` = (k, v) the token attends to all of
+    the encoder's keys and the cache keeps its k/v. Returns (y, the cache
+    with ``pos + 1``)."""
+    B, S, _ = x.shape
+    assert S == 1
+    pos = cache["pos"]
+    if cross_kv is None:
+        q, k, v = gqa_project_qkv(p, cfg, x, pos[:, None], plain=plain)
+        ck = _write_rows(cache["k"], k, pos)
+        cv = _write_rows(cache["v"], v, pos)
+        out = naive_attention(q, ck, cv, causal=True, q_offset=pos,
+                              window=window, softcap=cfg.logit_softcap)
+    else:
+        k, v = cross_kv
+        out = naive_attention(_cross_q(p, cfg, x, plain), k, v,
+                              causal=False, softcap=cfg.logit_softcap)
+    return qlinear.matmul(out.reshape(B, 1, -1), p["wo"], bias=p.get("bo"),
+                          plain=plain), dict(cache, pos=pos + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -242,14 +421,62 @@ def mla_prefill(p, cfg, x, *, plain: bool = False):
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, cfg.n_heads,
                                          m.qk_rope_head_dim)], dim=-1)
-    out = naive_attention(q, k, v, causal=True)
+    out = attention_core(q, k, v, causal=True)
     y = qlinear.matmul(out.reshape(B, S, -1), p["wo"], plain=plain)
     return y, torch.cat([c_kv, k_rope[:, :, 0, :]], dim=-1)
 
 
-def mla_apply(p, cfg, x):
+def mla_apply(p, cfg, x, plain: bool = False):
     """Full-sequence causal MLA attention (prefill)."""
-    return mla_prefill(p, cfg, x)[0]
+    return mla_prefill(p, cfg, x, plain=plain)[0]
+
+
+def mla_decode(p, cfg, x, cache, *, absorbed: bool = True,
+               plain: bool = False):
+    """MLA decode over the contiguous latent cache {"latent": (B, Tmax,
+    r + rope), "pos": (B,)}: the new latent row is written at ``pos`` (in
+    place), then the token attends to the first ``pos + 1`` rows.
+    ``absorbed`` scores against the latent through the absorbed weights
+    (q_nope · W_uk, then W_uv on the context), in float32; otherwise the
+    latent is expanded to per-head k/v. Returns (y, the cache with
+    ``pos + 1``)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    pos = cache["pos"]
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, cfg, x, pos[:, None],
+                                                    plain=plain)
+    lat = _write_rows(cache["latent"],
+                      torch.cat([c_kv_new, k_rope_new[:, :, 0, :]], dim=-1),
+                      pos)
+    cache = dict(cache, latent=lat, pos=pos + 1)
+    c_kv, k_rope = torch.split(lat, [m.kv_lora_rank, m.qk_rope_head_dim],
+                               dim=-1)
+    T = c_kv.shape[1]
+    kv_len = cache["pos"]
+    f32 = torch.float32
+    if absorbed:
+        w = p["w_ukv"]
+        w = (w.dequantize(f32) if qlinear.is_quantized(w) else w.to(f32))
+        w = w.reshape(m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)
+        wk, wv = w[..., :m.qk_nope_head_dim], w[..., m.qk_nope_head_dim:]
+        q_abs = torch.einsum("bshd,rhd->bshr", q_nope.to(f32), wk)
+        s = (torch.einsum("bshr,btr->bhst", q_abs, c_kv.to(f32))
+             + torch.einsum("bshd,btd->bhst", q_rope.to(f32),
+                            k_rope.to(f32)))
+        s = s * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+        live = torch.arange(T, device=x.device)[None, :] < kv_len[:, None]
+        s = torch.where(live[:, None, None, :], s, torch.full_like(s, -1e30))
+        ctx = torch.einsum("bhst,btr->bshr", torch.softmax(s, dim=-1),
+                           c_kv.to(f32))
+        out = torch.einsum("bshr,rhd->bshd", ctx, wv).to(x.dtype)
+    else:
+        k_nope, v = _mla_expand_kv(p, cfg, c_kv, plain=plain)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, T, H, m.qk_rope_head_dim)], dim=-1)
+        out = naive_attention(q, k, v, causal=False, kv_len=kv_len)
+    return qlinear.matmul(out.reshape(B, S, -1), p["wo"], plain=plain), cache
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,23 @@ dense one holds ``mlp``. The serving engine works on the **unrolled**
 per-layer list (``params_to_layer_list``), where each layer may
 independently be dense or quantized.
 
-The enc-dec and VLM families are not ported yet; they raise
-``NotImplementedError`` naming their ROADMAP queue 1 item.
+Every family builds here. A VLM (InternVL2) is the DENSE decoder with a
+``projector`` ({"w", "b"}) that maps the caller's image patch embeddings
+(``frontend``, (B, n_image_tokens, frontend_dim)) to ``n_image_tokens``
+embeddings put before the text tokens; ``embed_tokens`` refuses a VLM call
+without them. For an ENCDEC config (Whisper) this module gives what the
+JAX ``lm`` gives, ``dense`` x ``n_layers``: the decoder-only plan that both
+serving engines run; the encoder-decoder itself is ``models/encdec.py``.
+
+Beside the engine's paged steps, the model API decodes over a contiguous
+cache: ``init_cache`` builds the JAX tree ``{"segments", "pos"}`` (per
+segment a tuple of per-offset caches, stacked when the run repeats: k/v
+(B, Tmax, KVH, Dh), an MLA latent (B, Tmax, r + rope), an SSM state) and
+``decode_step`` / ``decode_step_unrolled`` advance it by one token,
+writing each layer's new row or state into it in place (as the JAX
+package's jitted ``dynamic_update_slice`` does), so a step moves one row a
+layer and not the cache. Every function that multiplies takes
+``plain=True`` to ask each kernel route for its plain version.
 """
 from __future__ import annotations
 
@@ -26,7 +41,8 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, ModelConfig
+from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
+                                      ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MO
@@ -61,12 +77,13 @@ def _kinds(cfg: ModelConfig) -> List[str]:
     return kinds
 
 
+FAMILIES = (DENSE, MOE, SSM, HYBRID, ENCDEC, VLM)
+
+
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family in (DENSE, MOE, SSM, HYBRID):
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported to torch yet "
-        f"— ROADMAP.md queue 1, item 8, 'Encoder-decoder and VLM'")
+    """Every family of the config module builds; an unknown one raises."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -123,10 +140,10 @@ def _attn_init(gen, cfg, dtype):
     return L.gqa_init(gen, cfg, dtype)
 
 
-def _attn_apply(p, cfg, x, *, window):
+def _attn_apply(p, cfg, x, *, window, plain=False):
     if cfg.mla is not None:
-        return L.mla_apply(p, cfg, x)
-    return L.gqa_apply(p, cfg, x, window=window)
+        return L.mla_apply(p, cfg, x, plain=plain)
+    return L.gqa_apply(p, cfg, x, window=window, plain=plain)
 
 
 def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig, dtype):
@@ -156,24 +173,24 @@ def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig, dtype):
 
 
 def block_apply(kind: str, p, cfg: ModelConfig, x, *, window: int = 0,
-                moe_cf: float = 1.25):
+                moe_cf: float = 1.25, plain: bool = False):
     """Full-sequence block. Returns (x, aux); aux carries the MoE layer's
     statistics and is empty without one."""
     if kind == "mamba":
         h = L.apply_norm(cfg.norm, p["norm"], x)
-        return x + M.mamba_apply(p["mixer"], cfg, h), {}
+        return x + M.mamba_apply(p["mixer"], cfg, h, plain=plain), {}
     if kind == "hybrid":
         h = L.apply_norm(cfg.norm, p["ln1"], x)
-        a = L.gqa_apply(p["attn"], cfg, h, window=window)
-        s = M.mamba_apply(p["ssm"], cfg, h)
-        return hybrid_ffn(p, cfg, x, a, s), {}
+        a = L.gqa_apply(p["attn"], cfg, h, window=window, plain=plain)
+        s = M.mamba_apply(p["ssm"], cfg, h, plain=plain)
+        return hybrid_ffn(p, cfg, x, a, s, plain=plain), {}
     h = L.apply_norm(cfg.norm, p["ln1"], x)
-    attn_out = _attn_apply(p["attn"], cfg, h, window=window)
+    attn_out = _attn_apply(p["attn"], cfg, h, window=window, plain=plain)
     if cfg.parallel_block:
-        return x + attn_out + L.mlp_apply(p["mlp"], cfg, h), {}
+        return x + attn_out + L.mlp_apply(p["mlp"], cfg, h, plain=plain), {}
     x = x + attn_out
     h2 = L.apply_norm(cfg.norm, p["ln2"], x)
-    y, aux = ffn_apply(kind, p, cfg, h2, moe_cf=moe_cf)
+    y, aux = ffn_apply(kind, p, cfg, h2, moe_cf=moe_cf, plain=plain)
     return x + y, aux
 
 
@@ -239,10 +256,22 @@ def ffn_apply(kind: str, p, cfg: ModelConfig, h, *, moe_cf: float = -1.0,
 # ---------------------------------------------------------------------------
 # Model init / forward
 # ---------------------------------------------------------------------------
-def _stack(dicts):
-    return {k: (_stack([d[k] for d in dicts]) if isinstance(dicts[0][k], dict)
-                else torch.stack([d[k] for d in dicts]))
-            for k in dicts[0]}
+def _stack(trees):
+    """One tree from same-structured trees, stacked along a new leading
+    dim: tensors by ``torch.stack``, QTensors field by field into one
+    stacked QTensor (read back per entry through ``QTensor.expert``)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _stack([t[k] for t in trees]) for k in t0}
+    if qlinear.is_quantized(t0):
+        return qlinear.QTensor(
+            *(torch.stack([getattr(t, f) for t in trees])
+              for f in ("packed", "scales", "zeros")),
+            bits=t0.bits, group=t0.group, K=t0.K, N=t0.N,
+            out_dtype=t0.out_dtype, use_kernel=t0.use_kernel,
+            inv_act=None if t0.inv_act is None
+            else torch.stack([t.inv_act for t in trees]))
+    return torch.stack(trees)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
@@ -266,32 +295,53 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab),
                                          dtype=dtype)
+    if cfg.family == VLM:
+        params["projector"] = {
+            "w": L.dense_init(gen, (cfg.frontend_dim, cfg.d_model),
+                              dtype=dtype),
+            "b": torch.zeros((cfg.d_model,), dtype=dtype, device=gen.device)}
     return params
 
 
-def embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens]
+def embed_tokens(cfg, params, tokens, frontend=None, plain: bool = False):
+    """Token embeddings (B, S, D); a VLM puts its projected image patch
+    embeddings ``frontend`` (B, n_image_tokens, frontend_dim) first."""
+    emb = params["embed"][tokens]
+    if cfg.family == VLM:
+        if frontend is None:
+            raise ValueError("vlm needs patch embeddings (frontend=)")
+        pe = qlinear.matmul(frontend, params["projector"]["w"],
+                            bias=params["projector"]["b"], plain=plain)
+        emb = torch.cat([pe.to(emb.dtype), emb], dim=1)
+    return emb
 
 
-def unembed(cfg, params, x):
+def unembed(cfg, params, x, plain: bool = False):
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     if cfg.tie_embeddings:
         return torch.matmul(x, params["embed"].T.to(x.dtype))
-    return qlinear.matmul(x, params["lm_head"])
+    return qlinear.matmul(x, params["lm_head"], plain=plain)
 
 
-def forward(cfg: ModelConfig, params, tokens, *, moe_cf: float = 1.25):
-    """Full-sequence logits. tokens: (B, S). ``moe_cf``: the MoE layers'
-    capacity factor (<= 0: no drop)."""
+def forward(cfg: ModelConfig, params, tokens, *, frontend=None,
+            moe_cf: float = 1.25, plain: bool = False):
+    """Full-sequence logits. tokens: (B, S_text); ``frontend``: a VLM's
+    patch embeddings. ``moe_cf``: the MoE layers' capacity factor (<= 0:
+    no drop). ``plain=True`` asks every kernel route for its plain
+    version."""
     return forward_unrolled(cfg, params, params_to_layer_list(cfg, params),
-                            tokens, moe_cf=moe_cf)
+                            tokens, frontend=frontend, moe_cf=moe_cf,
+                            plain=plain)
 
 
 # ---------------------------------------------------------------------------
 # Unrolled (per-layer list) path — used by the serving engine for morphing
 # ---------------------------------------------------------------------------
 def _index(tree, r):
-    return {k: (_index(v, r) if isinstance(v, dict) else v[r])
+    """Entry ``r`` of a stacked tree: tensors indexed, a stacked QTensor
+    through its 2-D view ``expert(r)``."""
+    return {k: (_index(v, r) if isinstance(v, dict) else
+                v.expert(r) if qlinear.is_quantized(v) else v[r])
             for k, v in tree.items()}
 
 
@@ -325,21 +375,142 @@ def layer_list_to_params(cfg: ModelConfig, layer_list, params) -> Dict:
 
 
 def forward_unrolled(cfg: ModelConfig, params, layer_list, tokens, *,
-                     moe_cf: float = 1.25):
-    x = embed_tokens(cfg, params, tokens)
+                     frontend=None, moe_cf: float = 1.25,
+                     plain: bool = False):
+    x = embed_tokens(cfg, params, tokens, frontend, plain=plain)
     for i, (kind, lp) in enumerate(layer_list):
         x, _ = block_apply(kind, lp, cfg, x, window=layer_window(cfg, i),
-                           moe_cf=moe_cf)
-    return unembed(cfg, params, x)
+                           moe_cf=moe_cf, plain=plain)
+    return unembed(cfg, params, x, plain=plain)
 
 
 def prefill_collect(cfg: ModelConfig, params, layer_list, tokens, *,
-                    plain: bool = False):
+                    frontend=None, plain: bool = False):
     """Unrolled prefill returning (logits, [per-layer cache payload])."""
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, frontend, plain=plain)
     payloads = []
     for i, (kind, lp) in enumerate(layer_list):
         x, payload = block_prefill(kind, lp, cfg, x,
                                    window=layer_window(cfg, i), plain=plain)
         payloads.append(payload)
-    return unembed(cfg, params, x), payloads
+    return unembed(cfg, params, x, plain=plain), payloads
+
+
+# ---------------------------------------------------------------------------
+# Decode over a contiguous cache (the model API's decode path)
+# ---------------------------------------------------------------------------
+def _layer_cache(cfg, kind, batch, max_seq, dtype, device):
+    Dh = cfg.resolved_head_dim
+    if kind == "mamba":
+        return M.mamba_init_state(cfg, batch, torch.float32, device=device)
+    kv = (batch, max_seq, cfg.n_kv_heads, Dh)
+    if kind == "hybrid":
+        st = M.mamba_init_state(cfg, batch, torch.float32, device=device)
+        return {"k": torch.zeros(kv, dtype=dtype, device=device),
+                "v": torch.zeros(kv, dtype=dtype, device=device),
+                **{f"ssm_{k}": v for k, v in st.items()}}
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"latent": torch.zeros(
+            (batch, max_seq, m.kv_lora_rank + m.qk_rope_head_dim),
+            dtype=dtype, device=device)}
+    return {"k": torch.zeros(kv, dtype=dtype, device=device),
+            "v": torch.zeros(kv, dtype=dtype, device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
+               device="cuda") -> Dict[str, Any]:
+    """The JAX package's decode cache on ``device``: {"segments": per
+    segment a tuple of per-offset layer caches (stacked with a leading
+    repeat dim when the run repeats), "pos": (batch,) int32 zeros}. KV and
+    latent rows are ``dtype`` (the config's by default); SSM states are
+    float32."""
+    dtype = torch_dtype(dtype or cfg.dtype)
+    caches = [_layer_cache(cfg, kind, batch, max_seq, dtype, device)
+              for kind in layer_kinds(cfg)]
+    out, li = [], 0
+    for pattern, reps in segment_plan(cfg):
+        per_off = [[caches[li + r * len(pattern) + o] for r in range(reps)]
+                   for o in range(len(pattern))]
+        out.append(tuple(_stack(c) if reps > 1 else c[0] for c in per_off))
+        li += len(pattern) * reps
+    return {"segments": out,
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _update(cache, state, prefix=""):
+    """Copy the SSM ``state`` {"conv", "ssm"} into ``cache`` in place."""
+    for k, v in state.items():
+        cache[prefix + k].copy_(v)
+
+
+def block_decode(kind: str, p, cfg: ModelConfig, x, cache, pos, *,
+                 window: int = 0, plain: bool = False):
+    """Single-token decode for one block. x: (B, 1, D); pos: (B,). The
+    layer's cache is updated in place: the new token's k/v or latent row
+    written at ``pos``, an SSM state overwritten. Returns (x, cache)."""
+    if kind == "mamba":
+        h = L.apply_norm(cfg.norm, p["norm"], x)
+        y, st = M.mamba_decode(p["mixer"], cfg, h, cache, plain=plain)
+        _update(cache, st)
+        return x + y, cache
+    if kind == "hybrid":
+        h = L.apply_norm(cfg.norm, p["ln1"], x)
+        a, _ = L.gqa_decode(p["attn"], cfg, h,
+                            {"k": cache["k"], "v": cache["v"], "pos": pos},
+                            window=window, plain=plain)
+        s, st = M.mamba_decode(p["ssm"], cfg, h, {"conv": cache["ssm_conv"],
+                                                  "ssm": cache["ssm_ssm"]},
+                               plain=plain)
+        _update(cache, st, "ssm_")
+        return hybrid_ffn(p, cfg, x, a, s, plain=plain), cache
+    h = L.apply_norm(cfg.norm, p["ln1"], x)
+    if cfg.mla is not None:
+        attn_out, _ = L.mla_decode(p["attn"], cfg, h,
+                                   {"latent": cache["latent"], "pos": pos},
+                                   plain=plain)
+    else:
+        attn_out, _ = L.gqa_decode(p["attn"], cfg, h,
+                                   {"k": cache["k"], "v": cache["v"],
+                                    "pos": pos}, window=window, plain=plain)
+    if cfg.parallel_block:
+        return x + attn_out + L.mlp_apply(p["mlp"], cfg, h,
+                                          plain=plain), cache
+    x = x + attn_out
+    h2 = L.apply_norm(cfg.norm, p["ln2"], x)
+    return x + ffn_apply(kind, p, cfg, h2, plain=plain)[0], cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens, *,
+                plain: bool = False):
+    """One decode step over the whole stack. tokens: (B, 1) (text tokens:
+    a VLM's image tokens went in at prefill). The layer caches are
+    updated in place (a stacked segment through its per-layer views).
+    Returns (logits (B, 1, V), the cache with ``pos + 1``)."""
+    x = params["embed"][tokens]
+    pos = cache["pos"]
+    li = 0
+    for (pattern, reps), seg_p, seg_c in zip(segment_plan(cfg),
+                                             params["segments"],
+                                             cache["segments"]):
+        for r in range(reps):
+            for o, kind in enumerate(pattern):
+                lp, lc = ((_index(seg_p[o], r), _index(seg_c[o], r))
+                          if reps > 1 else (seg_p[o], seg_c[o]))
+                x, _ = block_decode(kind, lp, cfg, x, lc, pos,
+                                    window=layer_window(cfg, li),
+                                    plain=plain)
+                li += 1
+    return unembed(cfg, params, x, plain=plain), dict(cache, pos=pos + 1)
+
+
+def decode_step_unrolled(cfg: ModelConfig, params, layer_list, layer_caches,
+                         pos, tokens, *, plain: bool = False):
+    """Decode over a per-layer list of possibly mixed-precision layers.
+    layer_caches: one cache dict a layer, updated in place; pos: (B,).
+    Returns (logits, the layer caches)."""
+    x = params["embed"][tokens]
+    for i, (kind, lp) in enumerate(layer_list):
+        x, _ = block_decode(kind, lp, cfg, x, layer_caches[i], pos,
+                            window=layer_window(cfg, i), plain=plain)
+    return unembed(cfg, params, x, plain=plain), layer_caches

@@ -55,10 +55,12 @@ class QTensor:
                        use_kernel=use_kernel)
 
     def expert(self, e: int) -> "QTensor":
-        """2-D view of expert ``e`` of a stacked (E, K, N) QTensor: of a
-        contiguous stack (``quantize_tree``, the bridge), a contiguous view
-        in the layout the wNa16 kernel reads."""
-        if self.packed.ndim != 3:
+        """Entry ``e`` of a stacked QTensor: of (E, K, N) experts, a 2-D
+        view, contiguous for a contiguous stack (``quantize_tree``, the
+        bridge), in the layout the wNa16 kernel reads; of a deeper stack
+        (the stacked experts of a repeated segment's layers), the stack
+        one level down."""
+        if self.packed.ndim < 3:
             raise ValueError("expert() needs a stacked QTensor")
         return QTensor(self.packed[e], self.scales[e], self.zeros[e],
                        bits=self.bits, group=self.group, K=self.K, N=self.N,

@@ -124,15 +124,20 @@ def test_sim_engine_books_a_prebuilt_plan():
         [real.plan.freed_bytes(lv) for lv in real.plan.levels]
 
 
-def test_engine_admits_moe_and_refuses_what_is_not_ported():
-    """Configs with MoE layers (DeepSeek-V3 past its dense MLA layers,
-    Llama-4 Maverick), reduced and at full width, build an engine with the
-    JAX package's layer kinds, and so do Mamba-2 and Hymba (SSM and
-    hybrid); the families not ported yet (enc-dec, VLM) raise at the
-    engine, naming their ROADMAP queue 1 item; and params on another device than the engine's raise instead of
-    moving."""
+def test_engine_admits_every_family_and_refuses_vlm_real_compute():
+    """Every config, reduced and at full width, builds an engine with the
+    JAX package's layer kinds: DeepSeek-V3 past its dense MLA layers and
+    Llama-4 Maverick (MoE), Mamba-2 and Hymba (SSM and hybrid), and
+    Whisper and InternVL2 (ENCDEC and VLM: ``dense`` x ``n_layers``, the
+    decoder-only plan that both engines serve). A VLM engine in sim
+    compute serves the JAX engine's report; with real compute it raises
+    at construction, since the engine takes no image input, where the JAX
+    engine asserts at its first whole-prompt prefill. Params on another
+    device than the engine's raise instead of moving."""
+    import jax
     from repro.configs import get_config, reduced
     from repro.models import lm as jlm
+    from repro_torch import bridge
     from repro_torch.configs.archs import (HYMBA_1P5B, INTERNVL2_1B,
                                            LLAMA4_MAVERICK_400B,
                                            MAMBA2_780M, WHISPER_SMALL)
@@ -145,15 +150,31 @@ def test_engine_admits_moe_and_refuses_what_is_not_ported():
             eng = TEngine(t, None, sc, TEC(compute="sim"), device="cpu")
             assert list(eng.kinds) == jlm.layer_kinds(j)
             assert any(k.endswith("moe") for k in eng.kinds)
-    for cfg, kind in ((MAMBA2_780M, "mamba"), (HYMBA_1P5B, "hybrid")):
+    for cfg, kind in ((MAMBA2_780M, "mamba"), (HYMBA_1P5B, "hybrid"),
+                      (WHISPER_SMALL, "dense"), (INTERNVL2_1B, "dense")):
         jcfg_ = get_config(cfg.name)
         for t, j in ((cfg, jcfg_), (t_reduced(cfg), reduced(jcfg_))):
             eng = TEngine(t, None, sc, TEC(compute="sim"), device="cpu")
             assert list(eng.kinds) == jlm.layer_kinds(j) == \
                 [kind] * t.n_layers
-    for cfg in (WHISPER_SMALL, INTERNVL2_1B):
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-            TEngine(cfg, None, sc, TEC(compute="sim"), device="cpu")
+    jvlm, tvlm = reduced(get_config(INTERNVL2_1B.name)), \
+        t_reduced(INTERNVL2_1B)
+    kw = dict(duration_s=3.0, base_rps=3.0, seed=3, prompt_mean=40,
+              gen_mean=12, prompt_max=96, gen_max=24)
+    je = JEngine(jvlm, None, serving(params, ServingConfig),
+                 JEC(compute="sim"))
+    te = TEngine(tvlm, None, sc, TEC(compute="sim"), device="cpu")
+    rj, rt = je.run_trace(j_azure(**kw)), te.run_trace(t_azure(**kw))
+    assert rt.n_finished == rt.n_requests > 0
+    assert dataclasses.asdict(rj) == dataclasses.asdict(rt)
+    vparams = jlm.init_params(jvlm, jax.random.PRNGKey(0))
+    je = JEngine(jvlm, vparams, serving(params, ServingConfig),
+                 JEC(compute="real"))
+    with pytest.raises(AssertionError, match="vlm needs patch embeddings"):
+        je.run_trace([JTR(0.0, 20, 4)])
+    tv = bridge.to_torch(jax.tree.map(np.asarray, vparams), "cpu")
+    with pytest.raises(ValueError, match="takes no image input"):
+        TEngine(tvlm, tv, sc, TEC(compute="real"), device="cpu")
     pool = PagedKVPool(mla_moe, 8, 16, device="cpu")
     assert tuple(pool.k.shape) == (4, 8, 16, 1, 48)
     with pytest.raises(ValueError, match="params live on"):

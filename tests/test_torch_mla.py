@@ -121,11 +121,13 @@ def _scale():
     return (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
 
 
-def test_family_check_admits_mla_and_moe_and_refuses_other_families():
+def test_family_check_admits_every_family():
     """The dense MLA cut, DeepSeek-V3 with its MoE layers (full width and
     reduced) and Llama-4 Maverick have the JAX package's layer kinds, and so
-    do Mamba-2 and Hymba (SSM and hybrid), whose params build; enc-dec and
-    VLM configs raise, naming their queue 1 item."""
+    do Mamba-2 and Hymba (SSM and hybrid), Whisper (ENCDEC: the decoder-only
+    plan of the JAX ``lm``) and InternVL2 (VLM), whose params build: the
+    decoder-only ones through ``lm.init_params`` (InternVL2's with its
+    projector), Whisper's encoder-decoder through ``encdec.init_params``."""
     from repro.configs.archs import LLAMA4_MAVERICK_400B as J_MAV
     from repro_torch.configs.archs import (HYMBA_1P5B, INTERNVL2_1B,
                                            LLAMA4_MAVERICK_400B,
@@ -152,12 +154,22 @@ def test_family_check_admits_mla_and_moe_and_refuses_other_families():
         p = tlm.init_params(t_reduced(cfg), torch.Generator())
         assert len(tlm.params_to_layer_list(t_reduced(cfg), p)) == \
             t_reduced(cfg).n_layers
-    item = "item 8, 'Encoder-decoder and VLM'"
-    for cfg in (WHISPER_SMALL, INTERNVL2_1B):
-        with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
-            tlm.layer_kinds(cfg)
-        with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
-            tlm.init_params(t_reduced(cfg), torch.Generator())
+    from repro.configs.archs import INTERNVL2_1B as J_VLM
+    from repro.configs.archs import WHISPER_SMALL as J_WHISPER
+    from repro_torch.models import encdec as ted
+    for cfg, jc in ((WHISPER_SMALL, J_WHISPER), (INTERNVL2_1B, J_VLM)):
+        tlm.check_family(cfg)
+        assert tlm.layer_kinds(cfg) == jlm.layer_kinds(jc) == \
+            ["dense"] * cfg.n_layers
+        assert tlm.layer_kinds(t_reduced(cfg)) == \
+            jlm.layer_kinds(j_reduced(jc))
+        p = tlm.init_params(t_reduced(cfg), torch.Generator())
+        assert len(tlm.params_to_layer_list(t_reduced(cfg), p)) == \
+            t_reduced(cfg).n_layers
+        assert ("projector" in p) == (cfg is INTERNVL2_1B)
+    p = ted.init_params(t_reduced(WHISPER_SMALL), torch.Generator())
+    assert p["dec_blocks"]["self_attn"]["wq"].shape[0] == 4
+    assert p["enc_blocks"]["attn"]["wq"].shape[0] == 2
 
 
 def test_init_params_tree_matches_jax_structure():

@@ -45,6 +45,33 @@ def to_np(t):
     return bridge.to_numpy(t)
 
 
+def np_tree(tree):
+    """A JAX tree (QTensor records included) with numpy leaves, for the
+    bridge."""
+    return jax.tree.map(np.asarray, tree)
+
+
+def rnd(shape, seed, scale=1.0):
+    """Seeded standard-normal float32 numpy input."""
+    return (np.random.default_rng(seed).standard_normal(shape)
+            .astype(np.float32) * scale)
+
+
+def close(got, want, tol):
+    """A port tensor against a JAX array, ``tol`` = dict(rtol, atol)."""
+    np.testing.assert_allclose(to_np(got), np.asarray(want), **tol)
+
+
+def trees_close(tt, jt, tol):
+    """A port tree against a JAX tree of the same leaves and shapes."""
+    jl = jax.tree.leaves(jt)
+    tl = jax.tree.leaves(tt, is_leaf=lambda x: isinstance(x, torch.Tensor))
+    assert len(jl) == len(tl)
+    for a, b in zip(tl, jl):
+        assert tuple(a.shape) == tuple(b.shape)
+        close(a, b, tol)
+
+
 def serving(params, cls):
     """quickstart's deliberately tight budget: weights + 8 fp32 blocks."""
     wb = j_tree_bytes(params)
