@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``src/repro_torch/kernels/build`` and runs fourteen phases, each of which
+``src/repro_torch/kernels/build`` and runs sixteen phases, each of which
 raises on failure:
 
 1. device: the card's name and power limit, torch/CUDA versions, and the
@@ -105,7 +105,25 @@ raises on failure:
    through the projector): the LIS profile with the image input (int4
    variants through K1), then ``lm.forward_unrolled`` and a prefill of the
    image + text prompt into ``lm.init_cache`` with 16 decode steps, at
-   levels 0 and 24, kernels against plain versions.
+   levels 0 and 24, kernels against plain versions;
+15. the serving cluster (``repro_torch.distributed``) on this card: three
+   real-compute replicas of phase 3's Llama-2-7B cut (one set of bf16
+   weights, each replica its own swap plan and the engine phase's budget)
+   serve the engine phase's trace at three times its rate under a fault
+   plan that drains one replica, fences another for a lost heartbeat (it
+   rejoins) and kills the third (it restarts), with KV migration between
+   them: every request finishes exactly once, drain and fencing migrations
+   and a recompute re-dispatch happen, a replica swaps, K1, K2 and K3
+   launch, and each migrated request's imported blocks are bit-equal to the
+   source's; each migration logs its measured device -> host, channel and
+   host -> device walls beside the channel's modelled time;
+16. migration parity at full width on single greedy requests: a request
+   exported mid-decode through the channel finishes with the uninterrupted
+   reference's stream (also with about half of its blocks quantized,
+   crossing as codec payload and decoded through K2-q); the int8-compressed
+   channel lands within the codec's error; a cached prefix migrated to a
+   peer is read there by the chunk walk (K3) and gives a fresh engine's
+   stream.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It exits non-zero, with no ``ok`` line, when there is no CUDA device, when
@@ -1812,6 +1830,638 @@ def internvl_phase(torch, k1_shapes):
     return n
 
 
+# ---------------------------------------------------------------------------
+# phases 15 and 16: the serving cluster on one card, and migration parity
+# ---------------------------------------------------------------------------
+CLUSTER_REPLICAS = 3
+CLUSTER_RPS = 6.0          # three times the engine phase's 2.0
+# Every replica's steps take CLUSTER_SLOW times their cost-model time on the
+# virtual clock (a "slow" fault on each replica: equal factors keep the
+# straggler detector quiet), so that requests hold KV across the 0.25 s
+# dispatch rounds when the other faults land, as the reference's own
+# migration tests stretch theirs. The fault times come from a rehearsal on
+# the virtual clock in sim compute with the real plan's per-layer bytes
+# (``swap_rate.real_bytes``): at 20x, the drain at 0.5 s finds slot-holders
+# on replica 0, replica 1's heartbeat loss at 1.5 s (fenced at 2.0 s,
+# rejoining 2 s later) finds live work to move, and the kill of replica 2
+# at 2.5 s (rejoining 1 s later) leaves work to recompute.
+CLUSTER_SLOW = 20.0
+
+
+def _cluster_faults(FaultSpec):
+    return tuple(FaultSpec("slow", 0.0, replica=i, factor=CLUSTER_SLOW)
+                 for i in range(CLUSTER_REPLICAS)) + (
+        FaultSpec("drain", 0.5, replica=0),
+        FaultSpec("heal", 1.0, replica=0),
+        FaultSpec("heartbeat_loss", 1.5, replica=1, duration_s=1.0),
+        FaultSpec("kill", 2.5, replica=2, restart_delay_s=1.0))
+
+
+def _finite_exec(torch, eng, bad):
+    """Wrap ``eng``'s real-compute calls to note non-finite logits."""
+    for what in ("decode", "prefill", "prefill_batch", "prefill_chunk"):
+        fn = getattr(eng.exec, what)
+
+        def run(*a, _fn=fn, _what=what, **kw):
+            out = _fn(*a, **kw)
+            if not bool(torch.isfinite(out).all()):
+                bad.append(_what)
+            return out
+        setattr(eng.exec, what, run)
+    return eng
+
+
+def _synced(torch, fn, walls, key):
+    """``fn`` with its synchronized wall time appended to ``walls[key]``."""
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        walls[key].append(time.perf_counter() - t)
+        return out
+    return run
+
+
+def cluster_phase(torch, model, counters):
+    """Serve the engine phase's trace at ``CLUSTER_RPS`` through a
+    ``ServingCluster`` of ``CLUSTER_REPLICAS`` real-compute replicas on
+    this card, all on the shared ``params``, each under the engine phase's
+    budget (weights + 8 float32 KV blocks, ladder (0, 1, 2, 4)), with
+    KV migration on (``MigrationConfig()``, 0.5 s heartbeat timeout) and
+    the fault plan ``_cluster_faults``. Migrations are counted by cause
+    (drain, heartbeat fencing) and re-dispatches by cause (drain, fencing,
+    kill); each migration logs its blocks, host bytes and the synchronized
+    device -> host, channel and host -> device walls beside the channel's
+    modelled time; each migrated request's imported blocks are held
+    bit-equal to the source's blocks, copied on the device before export.
+    Fails unless every logical request ends with exactly one FINISHED
+    record and none hangs, a drain and a fencing migration and a
+    re-dispatch happened, a replica swapped, and K1, K2 and K3 launched in
+    the run."""
+    from repro_torch.configs import ServingConfig
+    from repro_torch.core import tree_bytes
+    from repro_torch.distributed import (FaultPlan, FaultSpec,
+                                         MigrationChannel, MigrationConfig,
+                                         ServingCluster)
+    from repro_torch.engine import (EngineConfig, NVIDIA_H100_SXM,
+                                    azure_like)
+    from repro_torch.engine.kv_cache import PagedKVPool, kv_block_bytes
+
+    cfg, params, _ = model
+    wb = tree_bytes(params)
+    bb = kv_block_bytes(cfg, 16, 4)
+    sc = ServingConfig(hbm_budget_bytes=int((wb + 8 * bb) / 0.95) + 2 * bb,
+                       kv_block_size=16, max_batch_slots=8, max_seq_len=1024,
+                       swap_levels=(0, 1, 2, 4), mode="performance",
+                       kv_resize_step_frac=0.25)
+    ecfg = EngineConfig(policy="morph", compute="real", use_quant_kernel=True,
+                        hw=NVIDIA_H100_SXM)
+    mcfg = MigrationConfig()
+    bad = []
+    t0 = time.perf_counter()
+    cl = ServingCluster(cfg, params, sc, ecfg, n_replicas=CLUSTER_REPLICAS,
+                        heartbeat_timeout_s=0.5, restart_delay_s=2.0,
+                        migration=mcfg, device="cuda")
+    torch.cuda.synchronize()
+    log(f"cluster built ({time.perf_counter() - t0:.1f} s): "
+        f"{CLUSTER_REPLICAS} replicas on {cl.device}, each its own swap plan "
+        f"over the shared weights ({wb / 1e9:.3f} GB); budget "
+        f"{sc.hbm_budget_bytes / 1e9:.3f} GB a replica (weights + 8 blocks "
+        f"of {bb / 1e6:.3f} MB); {mcfg}")
+    for r in cl.replicas:
+        _finite_exec(torch, r.engine, bad)
+
+    # per-replica books, kept across fencing and restarts
+    books = collections.defaultdict(lambda: collections.Counter())
+    made = cl._make_engine
+
+    def make_engine(i):
+        books[i]["engines"] += 1
+        return _finite_exec(torch, made(i), bad)
+    cl._make_engine = make_engine
+    for i in range(CLUSTER_REPLICAS):
+        books[i]["engines"] += 1
+
+    def book(i, e):
+        books[i]["swaps"] += len(e.actuator.swap_log)
+        books[i]["resizes"] += len(e.resize_log)
+        books[i]["served"] += sum(q.state.name == "FINISHED"
+                                  for q in e.all_requests)
+
+    # cause attribution: the drain and fencing paths set it while they run
+    cause = ["dispatch"]
+    redispatch = collections.Counter()
+
+    def attributed(fn, label):
+        def run(i, *a, **kw):
+            cause[0] = label(i)
+            r0 = cl.redispatched
+            try:
+                return fn(i, *a, **kw)
+            finally:
+                redispatch[cause[0]] += cl.redispatched - r0
+                cause[0] = "dispatch"
+        return run
+
+    harvest = cl._harvest_and_discard
+
+    def harvest_and_book(i):
+        e = cl.replicas[i].engine
+        harvest(i)
+        book(i, e)
+    cl._drain = attributed(cl._drain, lambda i: "drain")
+    cl._harvest_and_discard = attributed(
+        harvest_and_book,
+        lambda i: "fence" if cl.replicas[i].alive else "kill")
+
+    walls = collections.defaultdict(list)
+    sent = []                          # host bytes of each gather
+    patched = [(PagedKVPool, "gather_blocks"), (PagedKVPool, "scatter_blocks"),
+               (MigrationChannel, "transfer")]
+    saved = [getattr(c, n) for c, n in patched]
+
+    def gather(self, ids):
+        k, v = saved[0](self, ids)
+        sent.append(k.nbytes + (v.nbytes if v is not None else 0))
+        return k, v
+    results = []
+
+    def transfer(self, *a, **kw):
+        out = saved[2](self, *a, **kw)
+        results.append(out[0])
+        return out
+    PagedKVPool.gather_blocks = _synced(torch, gather, walls, "d2h")
+    PagedKVPool.scatter_blocks = _synced(torch, saved[1], walls, "h2d")
+    MigrationChannel.transfer = _synced(torch, transfer, walls, "channel")
+
+    migrations = []
+    try_migrate = cl._try_migrate
+
+    def migrate(q, src):
+        e_src = cl.replicas[src].engine
+        ids = list(q.block_ids) if e_src is not None else []
+        before = None
+        if ids:
+            idx = torch.tensor(ids, device="cuda")
+            before = (e_src.pool.k[:, idx].clone(),
+                      e_src.pool.v[:, idx].clone())
+        n0 = {k: len(v) for k, v in walls.items()}
+        r0 = len(results)
+        ok = try_migrate(q, src)
+        rec = {"cause": cause[0], "cid": q.cluster_id, "src": src, "ok": ok,
+               "blocks": len(ids), "tokens": q.context_len}
+        for key in ("d2h", "channel", "h2d"):
+            rec[key] = sum(walls[key][n0.get(key, 0):])
+        if len(results) > r0:
+            res = results[-1]
+            rec.update(reason=res.reason, modelled_s=res.time_s,
+                       wire_bytes=res.bytes, host_bytes=sent[-1])
+        if ok:
+            dst = [(j, x) for j, r in enumerate(cl.replicas)
+                   if j != src and r.engine is not None
+                   for x in r.engine.running if x.cluster_id == q.cluster_id]
+            assert len(dst) == 1, f"migrated cid {q.cluster_id} found {dst}"
+            j, x = dst[0]
+            pool = cl.replicas[j].engine.pool
+            idx = torch.tensor(x.block_ids, device="cuda")
+            rec["dst"] = j
+            rec["bit_equal"] = (before is not None
+                                and torch.equal(pool.k[:, idx], before[0])
+                                and torch.equal(pool.v[:, idx], before[1]))
+        migrations.append(rec)
+        return ok
+    cl._try_migrate = migrate
+
+    trace = azure_like(duration_s=4.0, base_rps=CLUSTER_RPS, seed=3,
+                       prompt_mean=160, gen_mean=24, prompt_max=512,
+                       gen_max=48)
+    plan = FaultPlan(specs=_cluster_faults(FaultSpec), seed=0)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        report = cl.run(trace, plan)
+        torch.cuda.synchronize()
+    finally:
+        for (c, n), fn in zip(patched, saved):
+            setattr(c, n, fn)
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for i, r in enumerate(cl.replicas):
+        if r.engine is not None:
+            book(i, r.engine)
+
+    finished = collections.Counter()
+    other = []
+    for q in cl.collect_requests():
+        if q.state.name == "FINISHED":
+            finished[q.cluster_id] += 1
+        else:
+            other.append((q.cluster_id, q.state.name))
+    by_cause = collections.Counter((m["cause"], m["ok"]) for m in migrations)
+    log(f"served {report.n_finished}/{report.n_requests} requests, hung "
+        f"{report.n_hung}, redispatched {report.n_redispatched}, migrated "
+        f"{report.n_migrated}; {report.row()} (virtual clock, H100 cost "
+        f"model, steps x {CLUSTER_SLOW:g})")
+    shown = [(f.kind, f.start_s, f.replica) for f in plan.specs
+             if f.kind != "slow"]
+    log(f"faults: {shown}; "
+        f"detected failures {cl.detected_failures}, drains {cl.drains}; "
+        f"migrations by (cause, ok) {dict(by_cause)}; re-dispatches by cause "
+        f"{dict(redispatch)}")
+    log(f"migration_stats() {cl.migration_stats()}")
+    unsent = collections.Counter(m["cause"] for m in migrations
+                                 if "reason" not in m)
+    log(f"  attempts with no transfer (no slot-holder to export, or no "
+        f"peer to take it) by cause: {dict(unsent)}")
+    for m in migrations:
+        if "reason" not in m:
+            continue
+        outcome = ("migrated" if m["ok"] else
+                   f"channel {m['reason']}" if m["reason"] != "ok" else
+                   "refused at the destination (capacity, or killed)")
+        log(f"  migration cid {m['cid']} ({m['cause']}) {m['src']} -> "
+            f"{m.get('dst', '-')}: {outcome}, {m['blocks']} blocks "
+            f"({m['tokens']} tokens), host {m['host_bytes'] / 1e6:.2f} MB "
+            f"(float32), wire {m['wire_bytes'] / 1e6:.2f} MB modelled; device"
+            f"->host {m['d2h'] * 1e3:.2f} ms, channel (CRC, host) "
+            f"{m['channel'] * 1e3:.2f} ms, host->device {m['h2d'] * 1e3:.2f} "
+            f"ms (synchronized walls) against modelled "
+            f"{m['modelled_s'] * 1e3:.3f} ms at {mcfg.link_gbps:g} GB/s"
+            + (f"; imported blocks bit-equal: {m['bit_equal']}"
+               if m["ok"] else ""))
+    for i in sorted(books):
+        log(f"  replica {i}: engines {books[i]['engines']} (restarts "
+            f"{books[i]['engines'] - 1}), swaps {books[i]['swaps']}, resizes "
+            f"{books[i]['resizes']}, served {books[i]['served']}")
+    hist = cl.collect_history()
+    log(f"cluster wall time {wall:.2f} s (host clock, synchronized); "
+        f"engine steps {len(hist)} ({sum(t.decode_tokens > 0 for t in hist)}"
+        f" with a decode); "
+        f"launches {launches}; torch.cuda.max_memory_allocated "
+        f"{peak / 1e9:.3f} GB against the replicas' budgets summed "
+        f"{len(cl.replicas) * sc.hbm_budget_bytes / 1e9:.3f} GB (the "
+        f"weights, {wb / 1e9:.3f} GB, are held once)")
+
+    fails = []
+    if report.n_hung or other or set(finished) != set(range(len(trace))) \
+            or any(n != 1 for n in finished.values()):
+        fails.append(f"not every request finished exactly once (hung "
+                     f"{report.n_hung}, other records {other[:8]}, finished "
+                     f"{len(finished)} of {len(trace)}, twice "
+                     f"{[c for c, n in finished.items() if n != 1]})")
+    for what in ("drain", "fence"):
+        if by_cause[what, True] < 1:
+            fails.append(f"no {what} migration succeeded")
+    if cl.redispatched < 1 or redispatch["kill"] < 1:
+        fails.append(f"no re-dispatch after the kill ({dict(redispatch)})")
+    checked = [m["bit_equal"] for m in migrations if m["ok"]]
+    if not checked or not all(checked):
+        fails.append(f"imported blocks not bit-equal to the source's "
+                     f"({checked})")
+    if sum(b["swaps"] for b in books.values()) < 1:
+        fails.append("no replica swapped a layer")
+    for name in ("wna16_gemm", "paged_decode", "paged_chunk"):
+        if launches[name] <= 0:
+            fails.append(f"kernel {name} was not launched in the cluster run")
+    if bad:
+        fails.append(f"non-finite logits in {sorted(set(bad))}")
+    if fails:
+        raise AssertionError("cluster phase: " + "; ".join(fails))
+    return launches
+
+
+MIG_PROMPT, MIG_GEN, MIG_STOP = 300, 24, 8
+MIG_SHARED = 256           # the two prefix-migration prompts share this
+
+
+def _track(torch, eng, bad):
+    """Wrap ``eng`` (one request at a time) to keep the logits row of each
+    token it produces, by token index, and each argmax's top-2 gap."""
+    _finite_exec(torch, eng, bad)
+    rows = {}
+    last = {}
+    for what in ("decode", "prefill_chunk"):
+        fn = getattr(eng.exec, what)
+
+        def run(*a, _fn=fn, _what=what, **kw):
+            last[_what] = _fn(*a, **kw)
+            return last[_what]
+        setattr(eng.exec, what, run)
+    dec, chunk = eng._decode_real, eng._prefill_chunk_real
+
+    def decode_real(run):
+        n = [(r, len(r.generated)) for r in run]
+        dec(run)
+        for r, i in n:
+            rows[i] = last["decode"][r.slot].float().clone()
+
+    def prefill_chunk(r, clen):
+        first = chunk(r, clen)
+        if first is not None:
+            rows[len(r.generated)] = last["prefill_chunk"][clen - 1] \
+                .float().clone()
+        return first
+    eng._decode_real, eng._prefill_chunk_real = decode_real, prefill_chunk
+    return rows
+
+
+def _gap(torch, rows):
+    """The smallest top-2 gap over the logits ``rows``."""
+    return min(float(torch.topk(x, 2).values.diff().abs()[0]) for x in rows)
+
+
+def _submit(eng, prompt, gen):
+    from repro_torch.engine import TraceRequest
+    return eng.submit(TraceRequest(0.0, len(prompt), gen, tuple(prompt)))
+
+
+def _serve(eng, r, stop=None, at=None, hook=None):
+    """Step ``eng`` until its request ``r`` finishes or has ``stop``
+    tokens; ``hook(eng, r)`` runs once when it holds ``at`` tokens."""
+    for _ in range(10 * (r.prompt_len + r.max_new_tokens)):
+        if hook is not None and len(r.generated) == at:
+            hook(eng, r)
+            hook = None
+        if r.state.name == "FINISHED" or \
+                (stop is not None and len(r.generated) >= stop):
+            return r
+        eng.step()
+    raise AssertionError(f"request not done: {r.state.name}, "
+                         f"{len(r.generated)} tokens")
+
+
+def _parts(a, b):
+    """(equal, first index where the streams part)."""
+    n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    return list(a) == list(b), n
+
+
+def migration_parity_phase(torch, model, counters):
+    """Migration at full width, single greedy requests on engines pinned at
+    the fp level (``static_fp16``, one swap plan shared), budget weights +
+    64 float32 KV blocks, chunk budget 256: (a) a 300-token prompt's
+    request exported after 8 of its 24 tokens, through
+    ``MigrationChannel.transfer`` into a third engine, must finish with the
+    uninterrupted reference's stream (its first post-import logits held to
+    the reference's at ``TOL['bfloat16']``); (b) the same export through
+    the int8-compressing channel lands within the codec's error (the stream
+    is logged, not required); (c) with about half of the request's blocks
+    quantized (int8) on the source and, at the same step, on the
+    reference, the quantized blocks cross as codec payload and the
+    destination decodes through K2-q, with the reference's stream; (d) a
+    prompt sharing a 256-token prefix with one served on engine A is served
+    on engine B after A's cached prefix migrated there (``
+    export_prefix_payload`` -> channel -> ``import_prefix_chain``): its
+    chunked prefill (K3) reads the adopted blocks, and its stream must equal
+    the prompt's on a fresh engine."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ServingConfig
+    from repro_torch.core import build_swap_plan, tree_bytes
+    from repro_torch.distributed import MigrationChannel, MigrationConfig
+    from repro_torch.engine import (EngineConfig, KVQuantConfig,
+                                    MorphServeEngine, NVIDIA_H100_SXM)
+    from repro_torch.engine.kv_cache import kv_block_bytes
+
+    cfg, params, order = model
+    wb = tree_bytes(params)
+    bb = kv_block_bytes(cfg, 16, 4)
+    sc = ServingConfig(hbm_budget_bytes=int((wb + 64 * bb) / 0.95) + 2 * bb,
+                       kv_block_size=16, max_batch_slots=8, max_seq_len=1024,
+                       swap_levels=(0, 1, 2, 4), mode="performance")
+    plan = build_swap_plan(cfg, params, order, serving=sc, bits=4,
+                           use_kernel=True)
+    bad = []
+
+    def engine(**kw):
+        ec = EngineConfig(policy="static_fp16", compute="real",
+                          use_quant_kernel=True, hw=NVIDIA_H100_SXM,
+                          max_tokens_per_step=256, **kw)
+        return MorphServeEngine(cfg, params, sc, ec, device="cuda",
+                                plan=plan)
+
+    def reset():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        return {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+
+    def channel(src, **kw):
+        return MigrationChannel(MigrationConfig(**kw), src.cost,
+                                dtype_bytes=src.cost.dtype_bytes)
+
+    def blocks(eng, ids, names=("k", "v")):
+        idx = torch.tensor(list(ids), device="cuda")
+        return [getattr(eng.pool, n)[:, idx].clone() for n in names]
+
+    walls = collections.defaultdict(list)
+    gen = torch.Generator().manual_seed(23)
+    prompt = torch.randint(1, cfg.vocab, (MIG_PROMPT,), generator=gen).tolist()
+    fails = []
+
+    # (a) plain migration, and (b) the same export through int8 compression
+    ref = engine()
+    ref_rows = _track(torch, ref, bad)
+    want = _serve(ref, _submit(ref, prompt, MIG_GEN)).generated
+    src = engine()
+    _track(torch, src, bad)
+    r = _serve(src, _submit(src, prompt, MIG_GEN), stop=MIG_STOP)
+    before = blocks(src, r.block_ids)
+    st = _synced(torch, src.export_request_state, walls, "d2h")(r)
+    res, k, v = _synced(torch, channel(src).transfer, walls, "channel")(
+        st.n_blocks, st.k, st.v)
+    res_c, kc, vc = channel(src, compress_int8=True).transfer(
+        st.n_blocks, st.k, st.v)
+    src.detach_request(r)
+    del src
+    host = st.k.nbytes + st.v.nbytes
+    out = {}
+    for name, (kk, vv, rr) in (("plain", (k, v, res)),
+                               ("int8", (kc, vc, res_c))):
+        if not rr.ok:
+            raise AssertionError(f"migration parity: {name} transfer "
+                                 f"{rr.reason}")
+        dst = engine()
+        rows = _track(torch, dst, bad)
+        reset()
+        imp = _synced(torch, dst.import_request_state, walls, "h2d")
+        r2 = imp(dataclasses.replace(st, k=kk, v=vv))
+        got = blocks(dst, r2.block_ids)
+        r2 = _serve(dst, r2)
+        out[name] = (r2.generated, rows, got, read(), rr)
+        del dst
+    stream, rows, got, launched, _ = out["plain"]
+    same, part = _parts(stream, want)
+    first = MIG_STOP
+    g, w = rows[first], ref_rows[first]
+    rtol, atol = TOL["bfloat16"]
+    err = (g - w).abs()
+    scale = float(w.abs().max())
+    gap = _gap(torch, ref_rows.values())
+    bit = all(torch.equal(a, b) for a, b in zip(got, before))
+    log(f"(a) plain: {st.n_blocks} blocks ({len(st.prompt) + MIG_STOP} "
+        f"tokens) exported after {MIG_STOP} of {MIG_GEN} tokens; host "
+        f"{host / 1e6:.2f} MB (float32), wire {res.bytes / 1e6:.2f} MB "
+        f"modelled; device->host {walls['d2h'][0] * 1e3:.2f} ms, channel "
+        f"{walls['channel'][0] * 1e3:.2f} ms, host->device "
+        f"{walls['h2d'][0] * 1e3:.2f} ms (synchronized) against modelled "
+        f"{res.time_s * 1e3:.3f} ms at {MigrationConfig().link_gbps:g} GB/s; "
+        f"imported "
+        f"blocks bit-equal {bit}; stream equal {same} (parts at {part}); "
+        f"first post-import logits max|diff| {float(err.max()):.3e} (max|ref|"
+        f" {scale:.3f}); reference's smallest top-2 gap {gap:.4e}; "
+        f"destination launches {launched}")
+    if not same:
+        fails.append(f"(a) stream parts from the reference at token {part} "
+                     f"(reference's top-2 gap there "
+                     f"{_gap(torch, [ref_rows[part]]):.4e})")
+    if not bool((err <= rtol * w.abs() + atol * scale).all()):
+        fails.append(f"(a) first post-import logits off the reference's by "
+                     f"{float(err.max()):.3e} (TOL {TOL['bfloat16']})")
+    if not bit:
+        fails.append("(a) imported blocks differ from the source's")
+    if launched["paged_decode"] <= 0:
+        fails.append("(a) K2 did not launch on the destination")
+    stream_c, _, got_c, _, _ = out["int8"]
+    codec_ok, worst = True, 0.0
+    cb = MigrationConfig().chunk_blocks
+    for x, y in ((st.k, kc), (st.v, vc)):
+        for a in range(0, st.n_blocks, cb):
+            xs, ys = x[:, a:a + cb], y[:, a:a + cb]
+            # half the chunk's step, plus a float32 ulp at its largest
+            # value for the rounding of x / scale and of q x scale
+            amax = float(np.abs(xs).max())
+            bound = 0.5 * amax / 127.0 + amax * 2.0 ** -22
+            e = float(np.abs(xs - ys).max())
+            worst = max(worst, e / bound if bound else 0.0)
+            codec_ok &= e <= bound
+    landed = all(torch.equal(t, torch.as_tensor(y).to(t.device))
+                 for t, y in zip(got_c, (kc, vc)))
+    same_c, part_c = _parts(stream_c, want)
+    log(f"(b) int8 compression: wire {res_c.bytes / 1e6:.2f} MB modelled; "
+        f"received within the codec's half step of each chunk's scale "
+        f"({worst:.4f} of that bound at worst); landed as received "
+        f"{landed}; stream equal {same_c} (parts at {part_c} of {MIG_GEN}; "
+        f"logged, not required)")
+    if not (codec_ok and landed):
+        fails.append("(b) int8-compressed blocks off the codec's error")
+    del ref, out, got, got_c, before
+
+    # (c) quantized blocks travel as codec payload; decode through K2-q
+    def quantize_half(eng, r):
+        ids = r.block_ids[:len(r.block_ids) // 2]
+        done = eng.pool.quantize_blocks(ids, bits=8)
+        eng.ledger.quantize_kv(len(done))
+    tier = dict(kv_quant=KVQuantConfig(enabled=True))
+    ref = engine(**tier)
+    _track(torch, ref, bad)
+    want_q = _serve(ref, _submit(ref, prompt, MIG_GEN), at=MIG_STOP,
+                    hook=quantize_half).generated
+    src = engine(**tier)
+    _track(torch, src, bad)
+    r = _serve(src, _submit(src, prompt, MIG_GEN), stop=MIG_STOP)
+    quantize_half(src, r)
+    qids = [b for b in r.block_ids if b in src.pool.qbits]
+    qbefore = blocks(src, qids, src.pool._SIDECAR)
+    st = src.export_request_state(r)
+    res, k, v = channel(src).transfer(
+        st.n_blocks, st.k, st.v, quant=st.quant_payload,
+        quant_bits=st.quant_bits, quant_blocks=len(st.quant_idx))
+    src.detach_request(r)
+    del src
+    dst = engine(**tier)
+    _track(torch, dst, bad)
+    reset()
+    r2 = dst.import_request_state(dataclasses.replace(
+        st, k=k, v=v, quant_payload=res.quant))
+    qgot = blocks(dst, [r2.block_ids[i] for i in st.quant_idx],
+                  dst.pool._SIDECAR)
+    r2 = _serve(dst, r2)
+    launched = read()
+    same, part = _parts(r2.generated, want_q)
+    qbit = all(torch.equal(a, b) for a, b in zip(qgot, qbefore))
+    log(f"(c) quantized KV: {len(st.quant_idx)} of {st.n_blocks} blocks "
+        f"int8 on the source (and on the reference at token {MIG_STOP}), "
+        f"crossing as codec payload ({res.chunks} chunks, wire "
+        f"{res.bytes / 1e6:.2f} MB modelled); payload and sidecar landed "
+        f"bit-equal {qbit}; stream equal {same} (parts at {part}); "
+        f"destination launches {launched}")
+    if not same:
+        fails.append(f"(c) stream parts from the reference at token {part}")
+    if not qbit:
+        fails.append("(c) quantized payload changed in transit")
+    if launched["paged_decode_q"] <= 0:
+        fails.append("(c) K2-q did not launch on the destination")
+    del ref, dst, qgot, qbefore
+
+    # (d) a cached prefix migrates; the chunk walk reads the adopted blocks
+    shared = prompt[:MIG_SHARED]
+    tails = torch.randint(1, cfg.vocab, (2, MIG_PROMPT - MIG_SHARED),
+                          generator=gen).tolist()
+    p1, p2 = shared + tails[0], shared + tails[1]
+    pre = dict(prefix_caching=True)
+    a_eng = engine(**pre)
+    _track(torch, a_eng, bad)
+    _serve(a_eng, _submit(a_eng, p1, MIG_STOP))
+    bs = a_eng.prefix_cache.block_size
+    entries = a_eng.prefix_cache.peek(p2, len(p2) // bs)
+    kx, vx, qidx, qbits, qpay = a_eng.export_prefix_payload(entries)
+    res, kx, vx = channel(a_eng).transfer(
+        len(entries), kx, vx, quant=qpay, quant_bits=qbits,
+        quant_blocks=len(qidx))
+    b_eng = engine(**pre)
+    _track(torch, b_eng, bad)
+    adopted = b_eng.import_prefix_chain(
+        p2, [e.level for e in entries], len(entries), kx, vx,
+        quant_idx=qidx, quant_bits=qbits,
+        quant=res.quant if qpay is not None else None,
+        tols=[e.tol for e in entries])
+    mine = b_eng.prefix_cache.peek(p2, len(p2) // bs)
+    pbit = all(torch.equal(a, b) for a, b in zip(
+        blocks(b_eng, [e.block_id for e in mine]),
+        blocks(a_eng, [e.block_id for e in entries])))
+    del a_eng
+    reset()
+    got_d = _serve(b_eng, _submit(b_eng, p2, MIG_GEN)).generated
+    launched = read()
+    c_eng = engine(**pre)
+    c_rows = _track(torch, c_eng, bad)
+    want_d = _serve(c_eng, _submit(c_eng, p2, MIG_GEN)).generated
+    same, part = _parts(got_d, want_d)
+    log(f"(d) prefix: {len(entries)} cached blocks of A's prefix "
+        f"({MIG_SHARED} shared tokens) migrated to B ({res.reason}, "
+        f"{res.bytes / 1e6:.2f} MB modelled), {adopted} adopted, bit-equal "
+        f"{pbit}; B's prefix hits {b_eng.prefix_hit_requests}, prefill "
+        f"tokens saved {b_eng.prefill_tokens_saved}; stream equal to a "
+        f"fresh engine's {same} (parts at {part}; the fresh engine's "
+        f"smallest top-2 gap {_gap(torch, c_rows.values()):.4e}); B's "
+        f"launches {launched}")
+    if adopted != MIG_SHARED // bs or not pbit or \
+            b_eng.prefill_tokens_saved != MIG_SHARED:
+        fails.append(f"(d) prefix not adopted whole ({adopted} blocks, "
+                     f"bit-equal {pbit}, saved {b_eng.prefill_tokens_saved})")
+    if not same:
+        fails.append(f"(d) stream parts from the fresh engine's at token "
+                     f"{part}")
+    if launched["paged_chunk"] <= 0:
+        fails.append("(d) K3 did not launch on B")
+    if bad:
+        fails.append(f"non-finite logits in {sorted(set(bad))}")
+    if fails:
+        raise AssertionError("migration parity phase: " + "; ".join(fails))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2027,6 +2677,28 @@ def main() -> int:
         f"plain, tolerance {LOGIT_TOL} x max|logit|)")
     internvl_phase(torch, k1_shapes)
     log(f"InternVL2-1B phase {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 15-16. the serving cluster on this card: replicas of the Llama model
+    # under a fault plan that drains, fences and kills, with KV migration
+    # between them; then migration parity at full width
+    t0 = time.perf_counter()
+    model = build_model(torch, MORPH_LLAMA2_7B.replace(n_layers=8),
+                        profile=False)
+    log(f"cluster phase ({CLUSTER_REPLICAS} replicas, the engine phase's "
+        f"trace at {CLUSTER_RPS:g} requests a second, every replica's steps "
+        f"x {CLUSTER_SLOW:g} on the virtual clock)")
+    cluster_phase(torch, model, counters)
+    log(f"cluster phase {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"migration parity phase ({MIG_PROMPT}-token prompts, greedy, "
+        f"{MIG_GEN} tokens, export after {MIG_STOP})")
+    migration_parity_phase(torch, model, counters)
+    log(f"migration parity phase {time.perf_counter() - t0:.1f} s")
+    del model
     gc.collect()
     torch.cuda.empty_cache()
 
