@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``src/repro_torch/kernels/build`` and runs sixteen phases, each of which
+``src/repro_torch/kernels/build`` and runs seventeen phases, each of which
 raises on failure:
 
 1. device: the card's name and power limit, torch/CUDA versions, and the
@@ -123,7 +123,20 @@ raises on failure:
    crossing as codec payload and decoded through K2-q); the int8-compressed
    channel lands within the codec's error; a cached prefix migrated to a
    peer is read there by the chunk walk (K3) and gives a fresh engine's
-   stream.
+   stream;
+17. training at full width (plain torch: the TPU kernels serve, none is on
+   the training path): Llama-2-7B cut to 8 layers, bf16 weights, B = 2 at
+   train_4k's S = 4096 on the Markov data pipeline, through
+   ``launch/steps.make_train_step`` (remat "full", AdamW): the first
+   step's loss and gradients against a float32 witness (the same weights
+   as float32 copies; per-leaf and per-layer cosines), ``compress_tree``
+   of those gradients (error within half a scale step), 8 steps on the
+   repeated batch (finite, every leaf changed at step 1, the loss falls;
+   walls, tokens a second and ``max_memory_allocated`` beside the state's
+   reckoning), remat "dots" against "full", and on a 2-layer cut at S =
+   1024 a checkpoint resume (async save in 2 shards, verify, load) under
+   deterministic algorithms that must end bit-equal to the uninterrupted
+   run.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It exits non-zero, with no ``ok`` line, when there is no CUDA device, when
@@ -134,6 +147,7 @@ from __future__ import annotations
 import collections
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2462,6 +2476,330 @@ def migration_parity_phase(torch, model, counters):
         raise AssertionError("migration parity phase: " + "; ".join(fails))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training at full width
+# ---------------------------------------------------------------------------
+# Llama-2-7B at full width cut to TRAIN_LAYERS, bf16 weights; train_4k's
+# sequence length, its global batch of 256 cut to what one card holds
+TRAIN_LAYERS = 8
+TRAIN_B, TRAIN_S = 2, 4096
+TRAIN_STEPS = 8
+# AdamW writes the new weight back in the weight's dtype, as in JAX, so a
+# step must be large enough to move a bf16 weight of 1.0 (a norm's scale,
+# whose bf16 neighbours lie 2**-8 below and 2**-7 above) for every leaf to
+# change at step 1: lr 3e-3 without warmup, cosine over the 8 steps
+TRAIN_OPT = dict(lr=3e-3, warmup_steps=0, total_steps=TRAIN_STEPS)
+# the checkpoint's cut: 2 layers at S = 1024 (6.7 GB of state on disk),
+# saved in 2 host shards
+CKPT_LAYERS, CKPT_S, CKPT_SHARDS = 2, 1024, 2
+# the float32 witness (the same weights as float32 copies, the same batch):
+# the bf16 route rounds every weight, activation and gradient to 2**-9
+# relative; over 8 layers and the backward pass that stays a few percent
+WITNESS_LOSS_RTOL = 1e-2      # loss, relative
+WITNESS_NORM_RTOL = 5e-2      # global gradient norm, relative
+WITNESS_COS = 0.99            # each leaf gradient's cosine (each layer's)
+# remat "dots" against "full": the same forward ops, and under
+# deterministic algorithms the same backward values
+REMAT_RTOL = 1e-6             # loss and gradient norm, relative
+# int8 compression's error feedback: half a scale step, plus the float32
+# rounding of a product of up to 127 steps
+HALF_STEP = 0.5 + 127 * 2.0 ** -22
+
+
+def _sync_wall(torch, fn, *a):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*a)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _train_batch(torch, cfg, B, S):
+    """(tokens, labels) int32 on the card: step 0 of the Markov stream."""
+    from repro_torch.data import DataConfig, batch_at
+    x, y = batch_at(DataConfig(vocab=cfg.vocab, seq_len=S, batch_size=B,
+                               seed=0), 0, 0)
+    return (torch.from_numpy(x).to("cuda"), torch.from_numpy(y).to("cuda"))
+
+
+class _Deterministic:
+    """Deterministic algorithms inside the block (cuBLAS at a fixed
+    workspace; an accumulating index is no longer an atomic add), no
+    fill of uninitialized memory."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        import os
+        import torch.utils.deterministic as det
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        self.was = (self.torch.are_deterministic_algorithms_enabled(),
+                    det.fill_uninitialized_memory)
+        self.torch.use_deterministic_algorithms(True)
+        det.fill_uninitialized_memory = False
+
+    def __exit__(self, *exc):
+        import torch.utils.deterministic as det
+        self.torch.use_deterministic_algorithms(self.was[0])
+        det.fill_uninitialized_memory = self.was[1]
+
+
+def _cosines(torch, a, b, stacked):
+    """Cosine of two gradient leaves in float64: of the whole leaf and of
+    each layer of a stacked one."""
+    dots, na, nb = [], [], []
+    for x, y in zip(a.unbind(0) if stacked else [a],
+                    b.unbind(0) if stacked else [b]):
+        x, y = x.double().flatten(), y.double().flatten()
+        dots.append(float(x @ y))
+        na.append(float(x @ x))
+        nb.append(float(y @ y))
+    per = [d / max((p * q) ** 0.5, 1e-300) for d, p, q in zip(dots, na, nb)]
+    whole = sum(dots) / max((sum(na) * sum(nb)) ** 0.5, 1e-300)
+    return whole, per
+
+
+def _witness(torch, cfg, params, grads, loss, lg, x, y):
+    """(b): the first step's loss and gradients on float32 copies of the
+    weights, against the bf16 route's. Logs each layer's worst cosine and
+    relative gap; raises past the stated tolerances."""
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten_with_path
+    from repro_torch.distributed.sharding import path_str
+    p32 = _as_f32(torch, params)
+    (loss32, g32), wall = _sync_wall(torch, lg, p32, x, y)
+    del p32
+    n16, n32 = float(adamw.global_norm(grads)), float(adamw.global_norm(g32))
+    loss, loss32 = float(loss), float(loss32)
+    log(f"  (b) float32 witness: loss bf16 {loss:.6f} f32 {loss32:.6f} "
+        f"(rel {abs(loss - loss32) / abs(loss32):.2e}, tol "
+        f"{WITNESS_LOSS_RTOL}); grad norm bf16 {n16:.6f} f32 {n32:.6f} "
+        f"(rel {abs(n16 - n32) / n32:.2e}, tol {WITNESS_NORM_RTOL}); "
+        f"witness step {wall:.2f} s")
+    g32 = dict(flatten_with_path(g32))
+    worst, by_layer, misses = (None, 1.0), collections.defaultdict(list), []
+    for path, g in flatten_with_path(grads):
+        name = path_str(path)
+        stacked = name.startswith("segments/") and g.dim() >= 1 \
+            and g.shape[0] == cfg.n_layers
+        gap = float((g.float() - g32[path]).norm() / g32[path].norm())
+        whole, per = _cosines(torch, g, g32[path], stacked)
+        for li, c in enumerate(per if stacked else []):
+            by_layer[li].append((c, name))
+        if whole < worst[1]:
+            worst = (name, whole)
+        if min(per) < WITNESS_COS:
+            misses.append(f"{name} {min(per):.5f}")
+        log(f"    {name}: cos {whole:.6f} (layers "
+            f"{min(per):.6f}-{max(per):.6f}), rel L2 gap {gap:.3e}")
+    for li, cs in sorted(by_layer.items()):
+        c, name = min(cs)
+        log(f"    layer {li}: worst cos {c:.6f} ({name})")
+    log(f"  (b) worst leaf cos {worst[1]:.6f} ({worst[0]}); tolerance "
+        f"{WITNESS_COS}")
+    if abs(loss - loss32) > WITNESS_LOSS_RTOL * abs(loss32) or \
+            abs(n16 - n32) > WITNESS_NORM_RTOL * n32 or misses:
+        raise AssertionError(f"float32 witness missed: {misses}")
+
+
+def _compress_check(torch, grads):
+    """(e): ``compress_tree`` of the first step's gradients on the card;
+    the error feedback within half a scale step on every leaf."""
+    from repro_torch.optim import compression
+    from repro_torch.tree import leaves
+    (qs, scales, errs), wall = _sync_wall(
+        torch, compression.compress_tree, grads, None)
+    worst = 0.0
+    for q, s, e in zip(leaves(qs), leaves(scales), leaves(errs)):
+        ratio = float(e.abs().max() / s)
+        worst = max(worst, ratio)
+        if ratio > HALF_STEP or int(q.abs().max()) > 127:
+            raise AssertionError(f"compression: error {ratio:.6f} scale "
+                                 "steps")
+    qb = sum(q.numel() for q in leaves(qs))
+    gb = sum(g.numel() * g.element_size() for g in leaves(grads))
+    log(f"  (e) compress_tree: {len(leaves(qs))} leaves, int8 payload "
+        f"{qb / 1e9:.3f} GB of {gb / 1e9:.3f} GB bf16 gradients, largest "
+        f"error {worst:.6f} of a scale step (<= {HALF_STEP:.6f}), "
+        f"{wall * 1e3:.1f} ms")
+
+
+def _ckpt_check(torch, cfg):
+    """(d): on a CKPT_LAYERS cut at CKPT_S, 4 steps uninterrupted against 2
+    steps, an async save in CKPT_SHARDS shards, verify, load, 2 more steps;
+    under deterministic algorithms, so both must end bit-equal."""
+    import shutil
+    import tempfile
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    c2 = cfg.replace(n_layers=CKPT_LAYERS)
+    dcfg = DataConfig(vocab=c2.vocab, seq_len=CKPT_S, batch_size=TRAIN_B,
+                      seed=0)
+    step = steps.make_train_step(c2, adamw.OptConfig(**TRAIN_OPT))
+
+    def run(p, o, s0, n):
+        for s in range(s0, s0 + n):
+            x, y = (torch.from_numpy(a).to("cuda")
+                    for a in batch_at(dcfg, 0, s))
+            p, o, _ = step(p, o, x, y)
+        return p, o
+
+    with _Deterministic(torch):
+        p0 = lm.init_params(c2, torch.Generator(device="cuda").manual_seed(0))
+        pa = run(p0, adamw.init(p0), 0, 4)[0]
+        pb, ob = run(p0, adamw.init(p0), 0, 2)
+        del p0
+        state = {"p": pb, "o": ob}
+        nbytes = sum(t.numel() * t.element_size() for t in leaves(state))
+        with tempfile.TemporaryDirectory() as d:
+            log(f"  (d) checkpoint of {nbytes / 1e9:.3f} GB into a temporary "
+                f"directory ({shutil.disk_usage(d).free / 1e9:.1f} GB free)")
+            t = time.perf_counter()
+            th = ckpt.save(d, 2, state, shards=CKPT_SHARDS, async_write=True)
+            snap = time.perf_counter() - t
+            th.join()
+            wrote = time.perf_counter() - t
+            on_disk = sum(f.stat().st_size
+                          for f in Path(d, "step_00000002").iterdir())
+            t = time.perf_counter()
+            latest = ckpt.latest_step(d)           # verifies the checksums
+            ver = time.perf_counter() - t
+            if latest != 2:
+                raise AssertionError("checkpoint: step 2 did not verify")
+            (restored, _), load_wall = _sync_wall(
+                torch, ckpt.load, d, state, latest)
+        if not all(torch.equal(a, b) for a, b in zip(leaves(state),
+                                                     leaves(restored))):
+            raise AssertionError("checkpoint: restored state differs")
+        del state, pb, ob
+        pc = run(restored["p"], restored["o"], 2, 2)[0]
+        del restored
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(leaves(pa), leaves(pc)))
+    log(f"  (d) {on_disk / 1e9:.3f} GB on disk in {CKPT_SHARDS} shards: "
+        f"host snapshot {snap:.2f} s, written (async, md5 included) "
+        f"{wrote:.2f} s, verify (md5) {ver:.2f} s, load to the card "
+        f"{load_wall:.2f} s; restored state bit-equal; resumed params vs "
+        f"uninterrupted: max |diff| {diff:.3e} (deterministic algorithms: "
+        "must be 0)")
+    if diff != 0.0:
+        raise AssertionError("checkpoint: the resumed run parted")
+
+
+def train_phase(torch, cfg):
+    """Phase 17: training at full width (``launch/steps.make_train_step``,
+    remat, AdamW, int8 gradient compression, the data pipeline and the
+    checkpoint) on ``cfg`` with bf16 weights from a seeded generator, at
+    B = TRAIN_B, S = TRAIN_S: (b) the float32 witness of the first step's
+    gradients, (e) their compression, (a) TRAIN_STEPS steps on one
+    repeated batch, (c) remat "dots" against "full", (d) the checkpoint
+    resume. Raises on any failure."""
+    from repro_torch.launch import knobs, steps
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n = sum(p.numel() for p in leaves(params))
+    state = 2 * n * 2 + 2 * n * 4
+    tokens = TRAIN_B * TRAIN_S
+    flops = 4 * 2 * n * tokens    # forward, its recompute, backward (2x)
+    log(f"  {cfg.name} x{cfg.n_layers}: {n / 1e9:.3f} B params; reckoning: "
+        f"weights {2 * n / 1e9:.2f} GB + gradients {2 * n / 1e9:.2f} GB + "
+        f"m, v {8 * n / 1e9:.2f} GB = {state / 1e9:.2f} GB of state; "
+        f"~{flops:.2e} bf16 matmul FLOPs a step; memory held before: "
+        f"{base / 1e9:.3f} GB")
+    x, y = _train_batch(torch, cfg, TRAIN_B, TRAIN_S)
+    lg = steps.make_loss_and_grad(cfg)
+
+    torch.cuda.reset_peak_memory_stats()
+    (loss_b, grads), wall = _sync_wall(torch, lg, params, x, y)
+    log(f"  loss and gradients (bf16, remat full): {wall:.2f} s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+        " GB")
+    _witness(torch, cfg, params, grads, loss_b, lg, x, y)
+    gc.collect()
+    _compress_check(torch, grads)
+    with_grad = [g is not None for g in leaves(grads)]
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) TRAIN_STEPS steps on one repeated batch
+    step = steps.make_train_step(cfg, adamw.OptConfig(**TRAIN_OPT))
+    opt = adamw.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        (new, opt, st), wall = _sync_wall(torch, step, params, opt, x, y)
+        loss, gn, lr = float(st["loss"]), float(st["grad_norm"]), \
+            float(st["lr"])
+        if i == 0:
+            same = [torch.equal(a, b) for a, b in zip(leaves(params),
+                                                      leaves(new))]
+            if any(s and w for s, w in zip(same, with_grad)):
+                raise AssertionError("a leaf with a gradient did not change "
+                                     "at step 1")
+            if abs(loss - float(loss_b)) > 1e-6 * abs(loss):
+                raise AssertionError("step 1's loss differs from (b)'s")
+        params = new
+        losses.append(loss)
+        walls.append(wall)
+        log(f"  (a) step {i + 1}: loss {loss:.6f} grad norm {gn:.6f} lr "
+            f"{lr:.3e} wall {wall:.3f} s ({tokens / wall:.0f} tokens/s)")
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise AssertionError("non-finite loss or gradient norm")
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(walls[1:])
+    log(f"  (a) {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; median step {steady:.3f} s, {tokens / steady:.0f}"
+        f" tokens/s, {flops / steady / 1e12:.1f} TFLOP/s of matmul FLOPs; "
+        f"every leaf changed at step 1; max_memory_allocated "
+        f"{peak / 1e9:.3f} GB (state {state / 1e9:.2f} GB + activations)")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall")
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) remat "dots" against "full", one loss-and-gradient step each
+    out = {}
+    with _Deterministic(torch):
+        try:
+            for policy in ("full", "dots"):
+                knobs.set_knobs(remat_policy=policy)
+                torch.cuda.reset_peak_memory_stats()
+                (loss, g), wall = _sync_wall(torch, lg, params, x, y)
+                out[policy] = (float(loss), float(adamw.global_norm(g)),
+                               wall, torch.cuda.max_memory_allocated())
+                del g
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            knobs.reset()
+    for policy, (loss, gn, wall, pk) in out.items():
+        log(f"  (c) remat {policy}: loss {loss:.6f} grad norm {gn:.6f} "
+            f"wall {wall:.3f} s max_memory_allocated {pk / 1e9:.3f} GB")
+    (lf, nf, _, _), (ld, nd, _, _) = out["full"], out["dots"]
+    if abs(lf - ld) > REMAT_RTOL * abs(lf) or abs(nf - nd) > REMAT_RTOL * nf:
+        raise AssertionError("remat dots and full differ")
+    del params, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the checkpoint on a 2-layer cut
+    _ckpt_check(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2701,6 +3039,20 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+    # 17. training at full width: the train step with remat and AdamW on
+    # the Markov data, its float32 witness, int8 gradient compression, the
+    # remat policies and a checkpoint resume (plain torch: no TPU kernel is
+    # on the training path)
+    t0 = time.perf_counter()
+    log(f"train phase ({MORPH_LLAMA2_7B.name} x{TRAIN_LAYERS} layers at full "
+        f"width, bf16, B={TRAIN_B} S={TRAIN_S}, {TRAIN_STEPS} AdamW steps "
+        f"{TRAIN_OPT}; witness tolerances loss {WITNESS_LOSS_RTOL}, norm "
+        f"{WITNESS_NORM_RTOL}, cos >= {WITNESS_COS}; remat {REMAT_RTOL}; "
+        f"checkpoint {CKPT_LAYERS} layers at S={CKPT_S}, {CKPT_SHARDS} "
+        "shards)")
+    train_phase(torch, MORPH_LLAMA2_7B.replace(n_layers=TRAIN_LAYERS))
+    log(f"train phase {time.perf_counter() - t0:.1f} s")
 
     # the representative main-path case of each kernel, errors over all cases
     main_case = {"wna16_gemm": "wna16 M=8 K=4096 N=11008 int4",

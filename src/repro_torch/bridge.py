@@ -10,14 +10,16 @@ becomes a :class:`~repro_torch.quant.QTensor`, 2-D or a stack of MoE
 experts (3-D ``packed``/``scales``/``zeros``). A JAX ``PagedKVPool``'s
 device state (fp pools, quantized-KV sidecar, ``qbits``) crosses with
 :func:`copy_pool_state`, a JAX engine's per-slot SSM state
-(``ssm_conv``/``ssm_ssm``) with :func:`copy_ssm_state`. 0-d arrays (a
-hybrid layer's ``beta_a``/``beta_s``) become 0-d tensors.
+(``ssm_conv``/``ssm_ssm``) with :func:`copy_ssm_state`, a JAX optimizer
+state with :func:`to_opt_state`. 0-d arrays (a hybrid layer's
+``beta_a``/``beta_s``, an optimizer's step) become 0-d tensors.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.optim import OptState
 from repro_torch.quant import QTensor
 
 _QT_FIELDS = ("packed", "scales", "zeros", "bits", "group", "K", "N")
@@ -67,6 +69,15 @@ def to_torch(tree, device="cuda"):
                         and not isinstance(tree, np.generic)):
         return tree
     return array_to_torch(tree, device)
+
+
+def to_opt_state(state, device="cuda"):
+    """A JAX ``OptState`` (``step``, ``m``, ``v`` as numpy-convertible
+    trees) as the port's :class:`~repro_torch.optim.OptState` on
+    ``device``. An error-feedback state of the int8 gradient compression
+    is a plain tree: :func:`to_torch` carries it."""
+    return OptState(array_to_torch(state.step, device),
+                    to_torch(state.m, device), to_torch(state.v, device))
 
 
 _POOL_STATE = ("k", "v", "qk", "qv", "k_scale", "v_scale", "k_zero",

@@ -13,22 +13,20 @@ Modes:
     over 'data' (ZeRO-3 analogue); optimizer moments inherit param specs.
 
 The rules are the JAX package's (``repro.distributed.sharding``), over the
-port's trees: nested dicts (flattened in sorted key order), lists and
-tuples, with tensor leaves and :class:`~repro_torch.quant.QTensor` records,
-whose children ``packed``, ``scales``, ``zeros`` and ``inv_act`` are leaves
-``0`` to ``3`` of their path (a ``None`` drops out, as it does in JAX). So a
-leaf's path is the string the JAX package gives it. A spec is a :class:`P`;
-:func:`placements` turns one into the DTensor placements of a
+port's trees, walked in JAX's order by ``repro_torch.tree`` (dict keys
+sorted, a QTensor's children ``packed``, ``scales``, ``zeros`` and
+``inv_act`` as leaves ``0`` to ``3`` of its path, a ``None`` dropped, as in
+JAX). So a leaf's path is the string the JAX package gives it. A spec is a
+:class:`P`; :func:`placements` turns one into the DTensor placements of a
 ``DeviceMesh``. Nothing on the one-card serving path calls these rules.
 """
 from __future__ import annotations
 
-import copy
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.quant import QTensor
+from repro_torch.tree import flatten_with_path, map_with_path
 
 
 class P(tuple):
@@ -43,50 +41,20 @@ class P(tuple):
         return f"P{tuple.__repr__(self)}"
 
 
-_QT_CHILDREN = ("packed", "scales", "zeros", "inv_act")
+def tree_flatten_with_path(tree):
+    """``[(path, leaf)]`` of a port tree in JAX's flattening order
+    (``repro_torch.tree``); a :class:`P` is a leaf."""
+    return flatten_with_path(tree, is_leaf=_is_spec)
 
 
-def tree_flatten_with_path(tree, path=()):
-    """``[(path, leaf)]`` of a port tree in JAX's flattening order; a path
-    is a tuple of dict keys and sequence / QTensor-child indices. A
-    :class:`P` is a leaf."""
-    if tree is None:
-        return []
-    if isinstance(tree, P):
-        return [(path, tree)]
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree)
-                for x in tree_flatten_with_path(tree[k], path + (k,))]
-    if isinstance(tree, (list, tuple)):
-        return [x for i, v in enumerate(tree)
-                for x in tree_flatten_with_path(v, path + (i,))]
-    if isinstance(tree, QTensor):
-        return [x for i, name in enumerate(_QT_CHILDREN)
-                for x in tree_flatten_with_path(getattr(tree, name),
-                                                path + (i,))]
-    return [(path, tree)]
+def _is_spec(node) -> bool:
+    return isinstance(node, P)
 
 
-def _map_with_path(fn, tree, path=()):
+def _map_with_path(fn, tree):
     """``tree`` with every leaf replaced by ``fn(path, leaf)`` (same
     containers; a QTensor is copied with its children replaced)."""
-    if tree is None:
-        return None
-    if isinstance(tree, P):
-        return fn(path, tree)
-    if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (k,))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_with_path(fn, v, path + (i,))
-                          for i, v in enumerate(tree))
-    if isinstance(tree, QTensor):
-        out = copy.copy(tree)
-        for i, name in enumerate(_QT_CHILDREN):
-            setattr(out, name, _map_with_path(fn, getattr(tree, name),
-                                              path + (i,)))
-        return out
-    return fn(path, tree)
+    return map_with_path(fn, tree, is_leaf=_is_spec)
 
 
 def path_str(path) -> str:

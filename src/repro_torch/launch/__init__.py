@@ -1,6 +1,8 @@
 """Launch-time settings. ``knobs`` holds the model code's tunable levers
-(attention tiles, the windowed-prefill switch), as in the JAX package.
-Read them as ``knobs.KNOBS`` at call time: ``set_knobs`` rebinds it."""
+(attention tiles, the windowed-prefill switch, the remat policy), as in
+the JAX package. Read them as ``knobs.KNOBS`` at call time: ``set_knobs``
+rebinds it. ``launch.steps`` (imported on its own) holds the train,
+prefill and serve steps and the cell shapes."""
 from repro_torch.launch import knobs
 from repro_torch.launch.knobs import VARIANTS, Knobs, reset, set_knobs
 

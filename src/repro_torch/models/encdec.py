@@ -138,11 +138,15 @@ def decode_forward(cfg: ModelConfig, params, tokens, enc_states, *,
 
 
 def forward(cfg: ModelConfig, params, tokens, *, frontend=None,
+            remat: bool = False, collect_aux: bool = False,
             plain: bool = False):
-    """Encode the frames ``frontend``, then the teacher-forced decoder."""
-    return decode_forward(cfg, params, tokens,
-                          encode(cfg, params, frontend, plain=plain),
-                          plain=plain)
+    """Encode the frames ``frontend``, then the teacher-forced decoder.
+    ``remat`` is taken and ignored, as the JAX package's ``forward``
+    ignores it; ``collect_aux=True`` returns (logits, []) (no MoE)."""
+    logits = decode_forward(cfg, params, tokens,
+                            encode(cfg, params, frontend, plain=plain),
+                            plain=plain)
+    return (logits, []) if collect_aux else logits
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,

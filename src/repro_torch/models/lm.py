@@ -34,15 +34,22 @@ writing each layer's new row or state into it in place (as the JAX
 package's jitted ``dynamic_update_slice`` does), so a step moves one row a
 layer and not the cache. Every function that multiplies takes
 ``plain=True`` to ask each kernel route for its plain version.
+``forward`` also trains: ``remat=True`` makes each repetition of a
+segment's pattern one checkpoint (``launch.knobs.KNOBS.remat_policy``),
+as each JAX scan step is one, and ``collect_aux=True`` returns the MoE
+layers' expert loads.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils import checkpoint as ck
 
 from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
+from repro_torch.launch import knobs
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MO
@@ -324,14 +331,46 @@ def unembed(cfg, params, x, plain: bool = False):
 
 
 def forward(cfg: ModelConfig, params, tokens, *, frontend=None,
-            moe_cf: float = 1.25, plain: bool = False):
-    """Full-sequence logits. tokens: (B, S_text); ``frontend``: a VLM's
-    patch embeddings. ``moe_cf``: the MoE layers' capacity factor (<= 0:
-    no drop). ``plain=True`` asks every kernel route for its plain
-    version."""
+            moe_cf: float = 1.25, remat: bool = False,
+            collect_aux: bool = False, plain: bool = False):
+    """Full-sequence logits (train / prefill). tokens: (B, S_text);
+    ``frontend``: a VLM's patch embeddings. ``moe_cf``: the MoE layers'
+    capacity factor (<= 0: no drop). ``remat=True`` recomputes each
+    repetition of a segment's pattern (the JAX package's scan step) in the
+    backward pass, by ``knobs.KNOBS.remat_policy``. ``collect_aux=True``
+    returns (logits, per segment its stacked ``expert_load``, as the JAX
+    ``forward`` does). ``plain=True`` asks every kernel route for its
+    plain version."""
     return forward_unrolled(cfg, params, params_to_layer_list(cfg, params),
                             tokens, frontend=frontend, moe_cf=moe_cf,
+                            remat=remat, collect_aux=collect_aux,
                             plain=plain)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The selective checkpoint's counterpart of JAX's ``dots_saveable``:
+    keep every matmul's output, recompute the rest."""
+    return (ck.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ck.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(step, x):
+    """``step(x)`` under the ``knobs.KNOBS.remat_policy`` checkpoint:
+    "full" keeps only its input, "dots" its matmul outputs too, "none"
+    everything."""
+    policy = knobs.KNOBS.remat_policy
+    if policy == "none":
+        return step(x)
+    if policy == "dots":
+        return ck.checkpoint(step, x, use_reentrant=False,
+                             context_fn=functools.partial(
+                                 ck.create_selective_checkpoint_contexts,
+                                 _save_dots))
+    return ck.checkpoint(step, x, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -345,15 +384,28 @@ def _index(tree, r):
             for k, v in tree.items()}
 
 
+def _unstack(tree, reps: int) -> List:
+    """The ``reps`` entries of a stacked tree: each tensor unbound once
+    (one backward node a leaf, where indexing would add one a layer), a
+    stacked QTensor through ``expert(r)``."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, reps) for k, v in tree.items()}
+        return [{k: per[k][r] for k in tree} for r in range(reps)]
+    if qlinear.is_quantized(tree):
+        return [tree.expert(r) for r in range(reps)]
+    return list(tree.unbind(0))
+
+
 def params_to_layer_list(cfg: ModelConfig, params) -> List[Tuple[str, Any]]:
     """Flatten segment params into [(kind, layer_params)] of length L
-    (stacked tensors are indexed, so layer params are views)."""
+    (stacked tensors are unbound, so layer params are views)."""
     out = []
     for (pattern, reps), seg_p in zip(segment_plan(cfg), params["segments"]):
+        per_off = [_unstack(seg_p[o], reps) if reps > 1 else [seg_p[o]]
+                   for o in range(len(pattern))]
         for r in range(reps):
             for o, kind in enumerate(pattern):
-                out.append((kind, _index(seg_p[o], r) if reps > 1
-                            else seg_p[o]))
+                out.append((kind, per_off[o][r]))
     return out
 
 
@@ -376,12 +428,37 @@ def layer_list_to_params(cfg: ModelConfig, layer_list, params) -> Dict:
 
 def forward_unrolled(cfg: ModelConfig, params, layer_list, tokens, *,
                      frontend=None, moe_cf: float = 1.25,
+                     remat: bool = False, collect_aux: bool = False,
                      plain: bool = False):
+    """:func:`forward` over a per-layer list of possibly mixed-precision
+    layers, in the segment plan's order; its steps (one repetition of a
+    segment's pattern) are what ``remat`` checkpoints and what
+    ``collect_aux`` stacks."""
+    if len(layer_list) != cfg.n_layers:
+        raise ValueError(f"{len(layer_list)} layers for a config of "
+                         f"{cfg.n_layers}")
     x = embed_tokens(cfg, params, tokens, frontend, plain=plain)
-    for i, (kind, lp) in enumerate(layer_list):
-        x, _ = block_apply(kind, lp, cfg, x, window=layer_window(cfg, i),
-                           moe_cf=moe_cf, plain=plain)
-    return unembed(cfg, params, x, plain=plain)
+    aux_acc, li = [], 0
+    for pattern, reps in segment_plan(cfg):
+        loads = []
+        for _ in range(reps):
+            def step(x, _li=li, _n=len(pattern)):
+                out = []
+                for i in range(_li, _li + _n):
+                    kind, lp = layer_list[i]
+                    x, aux = block_apply(kind, lp, cfg, x,
+                                         window=layer_window(cfg, i),
+                                         moe_cf=moe_cf, plain=plain)
+                    if "expert_load" in aux:
+                        out.append(aux["expert_load"])
+                return x, (torch.stack(out) if out else
+                           torch.zeros((1,), device=x.device))
+            x, load = _remat(step, x) if remat else step(x)
+            loads.append(load)
+            li += len(pattern)
+        aux_acc.append(torch.stack(loads) if reps > 1 else loads[0])
+    logits = unembed(cfg, params, x, plain=plain)
+    return (logits, aux_acc) if collect_aux else logits
 
 
 def prefill_collect(cfg: ModelConfig, params, layer_list, tokens, *,

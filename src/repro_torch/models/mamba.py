@@ -3,7 +3,8 @@
 The JAX package's ``models/mamba.py``, function for function. The
 full-sequence path is the chunked SSD algorithm (Dao & Gu,
 arXiv:2405.21060 §6): a within-chunk quadratic term plus an inter-chunk
-recurrence, here a Python loop over chunks where JAX has ``lax.scan``. The
+recurrence, here a Python loop over chunks where JAX has ``lax.scan``
+(differentiable when a gradient is wanted). The
 decode path is the O(1) recurrent update. Both share parameters.
 
 Layout: ``in_proj`` emits [z, x, B, C, dt]; a depthwise causal conv over
@@ -123,16 +124,25 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int, init_state=None):
                                xc)                         # (b, nc, h, p, n)
     chunk_decay = torch.exp(torch.sum(dA, dim=2))         # (b, nc, h)
     # states[:, z]: the state entering chunk z; states[:, nc]: the final
-    states = torch.empty((b, nc + 1, h, p, n), dtype=x.dtype, device=x.device)
-    if init_state is None:
-        states[:, 0].zero_()
-    else:
-        states[:, 0] = init_state
     cs, cd = chunk_state.unbind(1), chunk_decay[..., None, None].unbind(1)
-    st = states.unbind(1)
-    for z in range(nc):
-        torch.addcmul(cs[z], st[z], cd[z], out=st[z + 1])
-    states_in, state = states[:, :nc], st[nc]
+    s0 = (torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device)
+          if init_state is None else init_state)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm, s0)):
+        # autograd: each state a new tensor, stacked once
+        st = [s0]
+        for z in range(nc):
+            st.append(torch.addcmul(cs[z], st[z], cd[z]))
+        states = torch.stack(st, dim=1)
+    else:
+        # serving: written into one preallocated buffer (the same values)
+        states = torch.empty((b, nc + 1, h, p, n), dtype=x.dtype,
+                             device=x.device)
+        states[:, 0] = s0
+        st = states.unbind(1)
+        for z in range(nc):
+            torch.addcmul(cs[z], st[z], cd[z], out=st[z + 1])
+    states_in, state = states[:, :nc], states[:, nc]
 
     y_inter = torch.einsum("bzchn,bzhpn->bzchp",
                            Cc * torch.exp(cum)[..., None], states_in)

@@ -38,6 +38,8 @@ def moe_init(gen: torch.Generator, cfg, dtype):
 
     def stack(shape):
         w = torch.empty((E, *shape), dtype=dtype, device=gen.device)
+        if w.is_meta:                    # shapes only: nothing to draw
+            return w
         for e in range(E):
             w[e] = L.dense_init(gen, shape, dtype=dtype)
         return w
@@ -145,3 +147,21 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 1.25,
 
 
 moe_apply.host_syncs = 0
+
+
+def load_balance_loss(aux, cfg) -> torch.Tensor:
+    """Switch-style aux loss as the JAX package computes it: E times the
+    sum of the squared expert loads (the load standing in for the mean
+    gate fraction)."""
+    load = aux["expert_load"]
+    return load.shape[0] * torch.sum(load * load)
+
+
+def update_aux_free_bias(p, aux, *, lr: float = 1e-3):
+    """DeepSeek-V3 aux-loss-free balancing: nudge the selection bias toward
+    underloaded experts (outside the gradient path). Returns a new layer
+    dict."""
+    load = aux["expert_load"]
+    target = 1.0 / load.shape[0]
+    return dict(p, router_bias=p["router_bias"]
+                + lr * torch.sign(target - load))

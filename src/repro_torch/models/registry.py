@@ -27,7 +27,8 @@ from repro_torch.quant import qlinear
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     init_params: Callable          # (cfg, gen)
-    forward: Callable              # (cfg, params, tokens, *, frontend, plain)
+    forward: Callable              # (cfg, params, tokens, *, frontend,
+    #                                 remat, collect_aux, plain)
     init_cache: Callable           # (cfg, batch, max_seq, dtype, *, device)
     decode_step: Callable          # (cfg, params, cache, tokens, *, plain)
     needs_frontend: bool
