@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA card, ``nvcc``
 (``CUDA_HOME`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It
 builds the port's kernels from ``src/repro_torch/kernels/csrc`` into
-``src/repro_torch/kernels/build`` and runs seventeen phases, each of which
+``src/repro_torch/kernels/build`` and runs eighteen phases, each of which
 raises on failure:
 
 1. device: the card's name and power limit, torch/CUDA versions, and the
@@ -136,7 +136,14 @@ raises on failure:
    reckoning), remat "dots" against "full", and on a 2-layer cut at S =
    1024 a checkpoint resume (async save in 2 shards, verify, load) under
    deterministic algorithms that must end bit-equal to the uninterrupted
-   run.
+   run;
+18. the dry run against the card: ``launch/dryrun.py`` on a (1, 1) mesh
+   for phase 17's own cell; its predicted ``argument_size_in_bytes`` must
+   equal the bytes phase 17 kept on the card for the parameters, the AdamW
+   state and the batch, with no collective on one device; the predicted
+   matmul FLOPs over phase 17's median step wall give the achieved TFLOP/s
+   (logged with the card's name and power limit and phase 17's
+   ``max_memory_allocated``, unbounded).
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It exits non-zero, with no ``ok`` line, when there is no CUDA device, when
@@ -2698,7 +2705,10 @@ def train_phase(torch, cfg):
     B = TRAIN_B, S = TRAIN_S: (b) the float32 witness of the first step's
     gradients, (e) their compression, (a) TRAIN_STEPS steps on one
     repeated batch, (c) remat "dots" against "full", (d) the checkpoint
-    resume. Raises on any failure."""
+    resume. Raises on any failure. Returns what phase 18 holds the dry run
+    against: the bytes (a) kept on the card for the parameters, the AdamW
+    state and the batch, its median step wall and its
+    ``max_memory_allocated``."""
     from repro_torch.launch import knobs, steps
     from repro_torch.models import lm
     from repro_torch.optim import adamw
@@ -2758,6 +2768,9 @@ def train_phase(torch, cfg):
             raise AssertionError("non-finite loss or gradient norm")
     peak = torch.cuda.max_memory_allocated()
     steady = statistics.median(walls[1:])
+    held = {"params": sum(t.nbytes for t in leaves(params)),
+            "adamw": sum(t.nbytes for t in leaves(opt)),
+            "batch": x.nbytes + y.nbytes}
     log(f"  (a) {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; median step {steady:.3f} s, {tokens / steady:.0f}"
         f" tokens/s, {flops / steady / 1e12:.1f} TFLOP/s of matmul FLOPs; "
@@ -2798,6 +2811,49 @@ def train_phase(torch, cfg):
     _ckpt_check(torch, cfg)
     gc.collect()
     torch.cuda.empty_cache()
+    return {"held": held, "step_s": steady, "peak": peak}
+
+
+def dryrun_phase(torch, cfg, train, card):
+    """Phase 18: the port's dry run (``launch/dryrun.py``) on a (1, 1) mesh
+    of a fake one-rank process group for phase 17's own cell (``cfg`` at
+    B = TRAIN_B, S = TRAIN_S, train). Its predicted
+    ``argument_size_in_bytes`` must equal the bytes phase 17 kept on the
+    card for the parameters, the AdamW state and the batch; on one device
+    it books no collective and its per-device matmul FLOPs are the
+    unsharded ones. Logs the predicted FLOPs over phase 17's median step
+    wall (achieved TFLOP/s) and phase 17's ``max_memory_allocated``, with
+    no bound on either."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    shape = ShapeSpec("train_phase", TRAIN_S, TRAIN_B, "train")
+    t0 = time.perf_counter()
+    with M.fake_world(1):
+        mesh = M.make_mesh((1, 1), ("data", "model"))
+        rec = dryrun.analyze_cell(dryrun.build_cell(cfg, shape, mesh))
+    took = time.perf_counter() - t0
+    held = train["held"]
+    pred = rec["argument_size_in_bytes"]
+    log(f"  analysis {took:.1f} s on meta tensors; predicted "
+        f"argument_size_in_bytes {pred:,} vs {sum(held.values()):,} held by "
+        f"phase 17 (params {held['params']:,} + AdamW state "
+        f"{held['adamw']:,} + batch {held['batch']:,}); phase 17's "
+        f"max_memory_allocated {train['peak']:,}")
+    if pred != sum(held.values()):
+        raise AssertionError("the dry run's argument bytes are not the "
+                             "bytes the train step keeps on the card")
+    colls = {k: v for k, v in rec["collectives"].items() if v}
+    if colls or rec["hlo_dot_flops"] != rec["global_dot_flops"]:
+        raise AssertionError(f"one device: collectives {colls}, FLOPs "
+                             f"{rec['hlo_dot_flops']} vs global "
+                             f"{rec['global_dot_flops']}")
+    flops = rec["hlo_dot_flops"]
+    log(f"  predicted hlo_dot_flops {flops:.6e} a step (forward, backward, "
+        f"remat recompute); phase 17's median step {train['step_s']:.4f} s: "
+        f"{flops / train['step_s'] / 1e12:.1f} TFLOP/s achieved on {card}; "
+        f"hlo_dot_bytes {rec['hlo_dot_bytes']:.6e}; unmodelled ops "
+        f"{rec['unmodelled_ops']}")
 
 
 def main() -> int:
@@ -3051,8 +3107,15 @@ def main() -> int:
         f"{WITNESS_NORM_RTOL}, cos >= {WITNESS_COS}; remat {REMAT_RTOL}; "
         f"checkpoint {CKPT_LAYERS} layers at S={CKPT_S}, {CKPT_SHARDS} "
         "shards)")
-    train_phase(torch, MORPH_LLAMA2_7B.replace(n_layers=TRAIN_LAYERS))
+    train = train_phase(torch, MORPH_LLAMA2_7B.replace(n_layers=TRAIN_LAYERS))
     log(f"train phase {time.perf_counter() - t0:.1f} s")
+
+    # 18. the dry run against the card: phase 17's cell on a (1, 1) mesh
+    t0 = time.perf_counter()
+    log("dry-run phase (launch/dryrun.py on a 1 x 1 mesh, phase 17's cell)")
+    dryrun_phase(torch, MORPH_LLAMA2_7B.replace(n_layers=TRAIN_LAYERS), train,
+                 card)
+    log(f"dry-run phase {time.perf_counter() - t0:.1f} s")
 
     # the representative main-path case of each kernel, errors over all cases
     main_case = {"wna16_gemm": "wna16 M=8 K=4096 N=11008 int4",

@@ -89,12 +89,14 @@ def _on_card(t: torch.Tensor, plain: bool) -> bool:
 def wna16_matmul(x2: torch.Tensor, qt, *, bias=None,
                  plain: bool = False) -> torch.Tensor:
     """x2 (M, K) × int4/int8 QTensor (K, N) → (M, N) in x2's dtype, with
-    the AWQ ``inv_act``, ``bias`` and the output cast fused."""
+    the AWQ ``inv_act``, ``bias`` and the output cast fused. A ``meta``
+    x2 (the dry run's shapes, which hold no data) takes the plain version,
+    whose matmul the dry run counts."""
     if qt.bits not in (4, 8):
         raise ValueError(f"wNa16 takes int4/int8 weights, not int{qt.bits}")
     inv = None if qt.inv_act is None else qt.inv_act.to(torch.float32)
     b = None if bias is None else bias.to(torch.float32)
-    if not _on_card(x2, plain):
+    if x2.is_meta or not _on_card(x2, plain):
         return ref.wna16_ref(x2, qt.packed, qt.scales, qt.zeros, inv, b,
                              bits=qt.bits, group=qt.group)
     from repro_torch.kernels.wna16_gemm import wna16_gemm

@@ -4,8 +4,10 @@ The JAX package's ``launch/steps.py``: the train step (the loss of
 ``forward`` with remat, its gradient, AdamW), the prefill and serve steps,
 and the shapes of a cell's inputs, parameters, cache and optimizer state.
 A shape is a tensor on the ``meta`` device (the counterpart of a
-``jax.ShapeDtypeStruct``): nothing is allocated. The JAX sharding hints
-(``ShardCtx``) have no meaning on one card and are not taken.
+``jax.ShapeDtypeStruct``): nothing is allocated. Each step takes the JAX
+sharding hints as a ``ShardCtx`` (``models/layers.py``): without mesh axes,
+on one card and on the CPU, they leave every tensor as it is; the dry run
+(``launch/dryrun.py``) gives them a mesh.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ENCDEC, VLM, ModelConfig, ShapeSpec
 from repro_torch.launch import knobs
+from repro_torch.models.layers import NO_SHARD, ShardCtx
 from repro_torch.models.lm import torch_dtype
 from repro_torch.models.registry import (frontend_shape, get_model,
                                          text_seq_len)
@@ -91,14 +94,15 @@ def softmax_xent(logits, labels):
     return torch.mean(lse - gold)
 
 
-def make_loss_and_grad(cfg: ModelConfig):
+def make_loss_and_grad(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
     """``loss_and_grad(params, tokens, labels, frontend=None)`` -> (loss,
     grads): the JAX ``value_and_grad`` of the train loss. ``grads`` has
     ``params``' structure; a leaf that the loss does not reach (a
     selection bias, an unread projection) has ``None``. The loss runs
     ``forward`` with ``remat=True`` (``knobs.KNOBS.remat_policy``) and the
     MoE capacity factor ``knobs.KNOBS.moe_capacity_factor``; a VLM's loss
-    covers its text positions only."""
+    covers its text positions only, and its logits are hinted vocab over
+    model (``ctx``)."""
     api = get_model(cfg)
 
     def loss_and_grad(params, tokens, labels, frontend=None):
@@ -107,9 +111,12 @@ def make_loss_and_grad(cfg: ModelConfig):
         flat = [p.detach().requires_grad_(True) for p in leaves(params)]
         with torch.enable_grad():
             logits = api.forward(cfg, unflatten(params, flat), tokens,
-                                 frontend=frontend, remat=True, **kw)
+                                 frontend=frontend, remat=True, ctx=ctx,
+                                 **kw)
             if cfg.family == VLM:
                 logits = logits[:, cfg.n_image_tokens:]
+            logits = ctx.constrain(
+                logits, (ctx.data_axis, None, ctx.model_axis), "steps.loss")
             loss = softmax_xent(logits, labels)
             del logits            # the backward does not read them
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
@@ -118,11 +125,12 @@ def make_loss_and_grad(cfg: ModelConfig):
     return loss_and_grad
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig):
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,
+                    ctx: ShardCtx = NO_SHARD):
     """``train_step(params, opt_state, tokens, labels, frontend=None)`` ->
     (params, opt_state, {"loss", "grad_norm", "lr"}). Its inputs are left
     as they are."""
-    loss_and_grad = make_loss_and_grad(cfg)
+    loss_and_grad = make_loss_and_grad(cfg, ctx)
 
     def train_step(params, opt_state, tokens, labels, frontend=None):
         loss, grads = loss_and_grad(params, tokens, labels, frontend)
@@ -133,21 +141,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig):
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
     api = get_model(cfg)
 
     @torch.no_grad()
     def prefill_step(params, tokens, frontend=None):
-        logits = api.forward(cfg, params, tokens, frontend=frontend)
+        logits = api.forward(cfg, params, tokens, frontend=frontend, ctx=ctx)
         # serving prefill returns next-token logits only
         return logits[:, -1, :]
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, ctx: ShardCtx = NO_SHARD):
     """One decode step against a full-length cache (the decode_* cells);
-    the cache is written in place."""
+    the cache is written in place. The decode path has no sharding hints
+    (nor has the JAX one): ``ctx`` is taken for the JAX signature."""
     api = get_model(cfg)
 
     @torch.no_grad()

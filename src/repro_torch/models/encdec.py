@@ -91,14 +91,17 @@ def _layers(stacked, n: int):
     return [_index(stacked, i) for i in range(n)]
 
 
-def encode(cfg: ModelConfig, params, frames, *, plain: bool = False):
-    """frames: (B, n_frames, frontend_dim) → encoder states (B, T, D)."""
+def encode(cfg: ModelConfig, params, frames, *, plain: bool = False,
+           ctx: L.ShardCtx = L.NO_SHARD):
+    """frames: (B, n_frames, frontend_dim) → encoder states (B, T, D).
+    ``ctx`` carries the attention layers' sharding hints."""
     x = qlinear.matmul(frames, params["adapter"]["w"],
                        bias=params["adapter"]["b"], plain=plain)
     x = x + sinusoids(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
     for blk in _layers(params["enc_blocks"], cfg.n_encoder_layers):
         h = L.apply_norm(cfg.norm, blk["ln1"], x)
-        x = x + L.gqa_apply(blk["attn"], cfg, h, causal=False, plain=plain)
+        x = x + L.gqa_apply(blk["attn"], cfg, h, causal=False, plain=plain,
+                            ctx=ctx)
         h2 = L.apply_norm(cfg.norm, blk["ln2"], x)
         x = x + L.mlp_apply(blk["mlp"], cfg, h2, plain=plain)
     return L.apply_norm(cfg.norm, params["enc_norm"], x)
@@ -120,18 +123,18 @@ def _tied_head(cfg, params, x):
 
 
 def decode_forward(cfg: ModelConfig, params, tokens, enc_states, *,
-                   plain: bool = False):
+                   plain: bool = False, ctx: L.ShardCtx = L.NO_SHARD):
     """Teacher-forced decoder pass. tokens: (B, S) → logits (B, S, V)."""
     S = tokens.shape[1]
     x = params["embed"][tokens]
     x = x + sinusoids(S, cfg.d_model, x.device).to(x.dtype)[None]
     for blk in _layers(params["dec_blocks"], cfg.n_layers):
         h = L.apply_norm(cfg.norm, blk["ln1"], x)
-        x = x + L.gqa_apply(blk["self_attn"], cfg, h, plain=plain)
+        x = x + L.gqa_apply(blk["self_attn"], cfg, h, plain=plain, ctx=ctx)
         hx = L.apply_norm(cfg.norm, blk["ln_x"], x)
         x = x + L.gqa_apply(blk["cross_attn"], cfg, hx, plain=plain,
                             cross_kv=_dec_cross_kv(cfg, blk, enc_states,
-                                                   plain))
+                                                   plain), ctx=ctx)
         h2 = L.apply_norm(cfg.norm, blk["ln2"], x)
         x = x + L.mlp_apply(blk["mlp"], cfg, h2, plain=plain)
     return _tied_head(cfg, params, x)
@@ -139,13 +142,14 @@ def decode_forward(cfg: ModelConfig, params, tokens, enc_states, *,
 
 def forward(cfg: ModelConfig, params, tokens, *, frontend=None,
             remat: bool = False, collect_aux: bool = False,
-            plain: bool = False):
+            plain: bool = False, ctx: L.ShardCtx = L.NO_SHARD):
     """Encode the frames ``frontend``, then the teacher-forced decoder.
     ``remat`` is taken and ignored, as the JAX package's ``forward``
     ignores it; ``collect_aux=True`` returns (logits, []) (no MoE)."""
     logits = decode_forward(cfg, params, tokens,
-                            encode(cfg, params, frontend, plain=plain),
-                            plain=plain)
+                            encode(cfg, params, frontend, plain=plain,
+                                   ctx=ctx),
+                            plain=plain, ctx=ctx)
     return (logits, []) if collect_aux else logits
 
 

@@ -15,14 +15,53 @@ write in place, that the model API's ``decode_step`` runs; the serving
 engine decodes over its paged pool instead (``engine/model_exec.py``).
 All of it is plain torch, as it is plain JAX in the reference; a layer's
 ``plain=True`` asks each quantized matmul for its kernel's plain version.
+
+Sharding: model code is mesh-agnostic. A :class:`ShardCtx` carries the
+JAX package's ``with_sharding_constraint`` hints at the same call sites
+(the embedding output, the attention outputs, the MoE dispatch buffers,
+the train loss's logits). Without mesh axes (one card, the CPU) a hint
+returns its tensor untouched; under the dry run it is handed to the
+analysis, which records it and reshards in its model of the mesh.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.launch import knobs
 from repro_torch.quant import qlinear
+
+
+# ---------------------------------------------------------------------------
+# Sharding context
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """The mesh axes a hint names. ``sink`` is the dry run's analysis
+    (``launch.step_analysis``): ``sink.constrain(x, spec, site)`` records
+    the hint and returns ``x``. A context without axes, or without a sink,
+    leaves every tensor as it is."""
+    data_axis: Optional[str] = None
+    model_axis: Optional[str] = None
+    sink: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+    def constrain(self, x, spec, site: str = ""):
+        """``x``, laid out as ``spec`` (per dim an axis name, a tuple of
+        names or None) on the mesh; ``site`` names the call site."""
+        if self.data_axis is None and self.model_axis is None:
+            return x
+        if self.sink is None:
+            return x
+        return self.sink.constrain(x, tuple(spec), site)
+
+    def ax(self, name):
+        return {"data": self.data_axis, "model": self.model_axis}[name]
+
+
+NO_SHARD = ShardCtx()
 
 
 # ---------------------------------------------------------------------------
@@ -300,13 +339,20 @@ def gqa_prefill(p, cfg, x, *, window: int = 0, causal: bool = True,
     """Full-sequence GQA attention through :func:`attention_core` that
     also returns (k, v) for KV-cache capture."""
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None, :]
+    out, kv = _gqa_attend(p, cfg, x, window, causal, plain)
+    y = qlinear.matmul(out.reshape(B, S, -1), p["wo"], bias=p.get("bo"),
+                       plain=plain)
+    return y, kv
+
+
+def _gqa_attend(p, cfg, x, window, causal, plain):
+    """Self-attention before the output projection: (out (B, S, H, Dh),
+    (k, v))."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = gqa_project_qkv(p, cfg, x, positions, plain=plain)
     out = attention_core(q, k, v, causal=causal, window=window,
                          softcap=cfg.logit_softcap)
-    y = qlinear.matmul(out.reshape(B, S, -1), p["wo"], bias=p.get("bo"),
-                       plain=plain)
-    return y, (k, v)
+    return out, (k, v)
 
 
 def _cross_q(p, cfg, x, plain: bool = False):
@@ -317,16 +363,20 @@ def _cross_q(p, cfg, x, plain: bool = False):
 
 
 def gqa_apply(p, cfg, x, *, window: int = 0, cross_kv=None,
-              causal: bool = True, plain: bool = False):
+              causal: bool = True, plain: bool = False,
+              ctx: ShardCtx = NO_SHARD):
     """Full-sequence GQA attention (train / prefill). ``cross_kv``: (k, v)
-    from an encoder for cross-attention (no rope, no mask)."""
-    if cross_kv is None:
-        return gqa_prefill(p, cfg, x, window=window, causal=causal,
-                           plain=plain)[0]
+    from an encoder for cross-attention (no rope, no mask). The attention
+    output (B, S, H, Dh) is hinted batch over data, heads over model."""
     B, S, _ = x.shape
-    k, v = cross_kv
-    out = attention_core(_cross_q(p, cfg, x, plain), k, v, causal=False,
-                         softcap=cfg.logit_softcap)
+    if cross_kv is None:
+        out, _ = _gqa_attend(p, cfg, x, window, causal, plain)
+    else:
+        k, v = cross_kv
+        out = attention_core(_cross_q(p, cfg, x, plain), k, v, causal=False,
+                             softcap=cfg.logit_softcap)
+    out = ctx.constrain(out, (ctx.data_axis, None, ctx.model_axis, None),
+                        "layers.gqa_apply")
     return qlinear.matmul(out.reshape(B, S, -1), p["wo"], bias=p.get("bo"),
                           plain=plain)
 
@@ -412,6 +462,15 @@ def _mla_expand_kv(p, cfg, c_kv, plain: bool = False):
 def mla_prefill(p, cfg, x, *, plain: bool = False):
     """Full-sequence causal MLA attention (latent expanded to per-head K/V)
     that also returns the latent cache rows (B, S, r + rope)."""
+    B, S, _ = x.shape
+    out, c_kv, k_rope = _mla_attend(p, cfg, x, plain)
+    y = qlinear.matmul(out.reshape(B, S, -1), p["wo"], plain=plain)
+    return y, torch.cat([c_kv, k_rope[:, :, 0, :]], dim=-1)
+
+
+def _mla_attend(p, cfg, x, plain):
+    """Causal MLA attention before the output projection: (out (B, S, H,
+    v_head_dim), the latent c_kv, the rotary key k_rope)."""
     m = cfg.mla
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
@@ -421,14 +480,17 @@ def mla_prefill(p, cfg, x, *, plain: bool = False):
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(B, S, cfg.n_heads,
                                          m.qk_rope_head_dim)], dim=-1)
-    out = attention_core(q, k, v, causal=True)
-    y = qlinear.matmul(out.reshape(B, S, -1), p["wo"], plain=plain)
-    return y, torch.cat([c_kv, k_rope[:, :, 0, :]], dim=-1)
+    return attention_core(q, k, v, causal=True), c_kv, k_rope
 
 
-def mla_apply(p, cfg, x, plain: bool = False):
-    """Full-sequence causal MLA attention (prefill)."""
-    return mla_prefill(p, cfg, x, plain=plain)[0]
+def mla_apply(p, cfg, x, plain: bool = False, ctx: ShardCtx = NO_SHARD):
+    """Full-sequence causal MLA attention (train / prefill), its attention
+    output hinted as :func:`gqa_apply`'s."""
+    B, S, _ = x.shape
+    out = _mla_attend(p, cfg, x, plain)[0]
+    out = ctx.constrain(out, (ctx.data_axis, None, ctx.model_axis, None),
+                        "layers.mla_apply")
+    return qlinear.matmul(out.reshape(B, S, -1), p["wo"], plain=plain)
 
 
 def mla_decode(p, cfg, x, cache, *, absorbed: bool = True,

@@ -147,10 +147,10 @@ def _attn_init(gen, cfg, dtype):
     return L.gqa_init(gen, cfg, dtype)
 
 
-def _attn_apply(p, cfg, x, *, window, plain=False):
+def _attn_apply(p, cfg, x, *, window, plain=False, ctx=L.NO_SHARD):
     if cfg.mla is not None:
-        return L.mla_apply(p, cfg, x, plain=plain)
-    return L.gqa_apply(p, cfg, x, window=window, plain=plain)
+        return L.mla_apply(p, cfg, x, plain=plain, ctx=ctx)
+    return L.gqa_apply(p, cfg, x, window=window, plain=plain, ctx=ctx)
 
 
 def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig, dtype):
@@ -180,24 +180,29 @@ def block_init(kind: str, gen: torch.Generator, cfg: ModelConfig, dtype):
 
 
 def block_apply(kind: str, p, cfg: ModelConfig, x, *, window: int = 0,
-                moe_cf: float = 1.25, plain: bool = False):
+                moe_cf: float = 1.25, plain: bool = False,
+                ctx: L.ShardCtx = L.NO_SHARD):
     """Full-sequence block. Returns (x, aux); aux carries the MoE layer's
-    statistics and is empty without one."""
+    statistics and is empty without one. ``ctx`` carries the sharding
+    hints."""
     if kind == "mamba":
         h = L.apply_norm(cfg.norm, p["norm"], x)
         return x + M.mamba_apply(p["mixer"], cfg, h, plain=plain), {}
     if kind == "hybrid":
         h = L.apply_norm(cfg.norm, p["ln1"], x)
-        a = L.gqa_apply(p["attn"], cfg, h, window=window, plain=plain)
+        a = L.gqa_apply(p["attn"], cfg, h, window=window, plain=plain,
+                        ctx=ctx)
         s = M.mamba_apply(p["ssm"], cfg, h, plain=plain)
         return hybrid_ffn(p, cfg, x, a, s, plain=plain), {}
     h = L.apply_norm(cfg.norm, p["ln1"], x)
-    attn_out = _attn_apply(p["attn"], cfg, h, window=window, plain=plain)
+    attn_out = _attn_apply(p["attn"], cfg, h, window=window, plain=plain,
+                           ctx=ctx)
     if cfg.parallel_block:
         return x + attn_out + L.mlp_apply(p["mlp"], cfg, h, plain=plain), {}
     x = x + attn_out
     h2 = L.apply_norm(cfg.norm, p["ln2"], x)
-    y, aux = ffn_apply(kind, p, cfg, h2, moe_cf=moe_cf, plain=plain)
+    y, aux = ffn_apply(kind, p, cfg, h2, moe_cf=moe_cf, plain=plain,
+                       ctx=ctx)
     return x + y, aux
 
 
@@ -250,13 +255,13 @@ def hybrid_ffn(p, cfg: ModelConfig, x, a, s, *, plain: bool = False):
 
 
 def ffn_apply(kind: str, p, cfg: ModelConfig, h, *, moe_cf: float = -1.0,
-              plain: bool = False):
+              plain: bool = False, ctx: L.ShardCtx = L.NO_SHARD):
     """A block's FFN: the MoE layer at capacity factor ``moe_cf`` (<= 0:
     no drop, as every serving path of the JAX package runs it), else the
     MLP. Returns (y, aux); aux is empty without MoE."""
     if kind in _MOE_KINDS:
         return MO.moe_apply(p["moe"], cfg, h, capacity_factor=moe_cf,
-                            plain=plain)
+                            plain=plain, ctx=ctx)
     return L.mlp_apply(p["mlp"], cfg, h, plain=plain), {}
 
 
@@ -332,7 +337,8 @@ def unembed(cfg, params, x, plain: bool = False):
 
 def forward(cfg: ModelConfig, params, tokens, *, frontend=None,
             moe_cf: float = 1.25, remat: bool = False,
-            collect_aux: bool = False, plain: bool = False):
+            collect_aux: bool = False, plain: bool = False,
+            ctx: L.ShardCtx = L.NO_SHARD):
     """Full-sequence logits (train / prefill). tokens: (B, S_text);
     ``frontend``: a VLM's patch embeddings. ``moe_cf``: the MoE layers'
     capacity factor (<= 0: no drop). ``remat=True`` recomputes each
@@ -340,11 +346,11 @@ def forward(cfg: ModelConfig, params, tokens, *, frontend=None,
     backward pass, by ``knobs.KNOBS.remat_policy``. ``collect_aux=True``
     returns (logits, per segment its stacked ``expert_load``, as the JAX
     ``forward`` does). ``plain=True`` asks every kernel route for its
-    plain version."""
+    plain version. ``ctx`` carries the sharding hints."""
     return forward_unrolled(cfg, params, params_to_layer_list(cfg, params),
                             tokens, frontend=frontend, moe_cf=moe_cf,
                             remat=remat, collect_aux=collect_aux,
-                            plain=plain)
+                            plain=plain, ctx=ctx)
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -429,7 +435,7 @@ def layer_list_to_params(cfg: ModelConfig, layer_list, params) -> Dict:
 def forward_unrolled(cfg: ModelConfig, params, layer_list, tokens, *,
                      frontend=None, moe_cf: float = 1.25,
                      remat: bool = False, collect_aux: bool = False,
-                     plain: bool = False):
+                     plain: bool = False, ctx: L.ShardCtx = L.NO_SHARD):
     """:func:`forward` over a per-layer list of possibly mixed-precision
     layers, in the segment plan's order; its steps (one repetition of a
     segment's pattern) are what ``remat`` checkpoints and what
@@ -438,6 +444,7 @@ def forward_unrolled(cfg: ModelConfig, params, layer_list, tokens, *,
         raise ValueError(f"{len(layer_list)} layers for a config of "
                          f"{cfg.n_layers}")
     x = embed_tokens(cfg, params, tokens, frontend, plain=plain)
+    x = ctx.constrain(x, (ctx.data_axis, None, None), "lm.forward")
     aux_acc, li = [], 0
     for pattern, reps in segment_plan(cfg):
         loads = []
@@ -448,7 +455,8 @@ def forward_unrolled(cfg: ModelConfig, params, layer_list, tokens, *,
                     kind, lp = layer_list[i]
                     x, aux = block_apply(kind, lp, cfg, x,
                                          window=layer_window(cfg, i),
-                                         moe_cf=moe_cf, plain=plain)
+                                         moe_cf=moe_cf, plain=plain,
+                                         ctx=ctx)
                     if "expert_load" in aux:
                         out.append(aux["expert_load"])
                 return x, (torch.stack(out) if out else

@@ -18,6 +18,12 @@ that has rows when the stack is kernel-flagged, a dequantization of that
 expert alone otherwise. K1 takes M as a host integer, so the per-expert
 row counts reach the host once per call: ``moe_apply.host_syncs`` counts
 those copies.
+
+A ``meta`` input has no row counts to read. There ``moe_apply`` takes the
+JAX package's own dispatch (:func:`padded_dispatch`): every expert
+multiplies a dense (C, D) buffer at the capacity C of the call, as the
+JAX dry run sees it, with the ``ShardCtx`` hints on the buffers at the
+JAX sites. Its values are the same function's.
 """
 from __future__ import annotations
 
@@ -99,23 +105,30 @@ def route(p, cfg, xf):
     return top_idx, gates, gate_scores
 
 
+def _capacity(T: int, K: int, E: int, capacity_factor: float) -> int:
+    if capacity_factor <= 0:
+        return T * K
+    return min(max(int(T * K / E * capacity_factor + 0.999), 1), T * K)
+
+
 def moe_apply(p, cfg, x, *, capacity_factor: float = 1.25,
-              plain: bool = False):
+              plain: bool = False, ctx: L.ShardCtx = L.NO_SHARD):
     """x: (B, S, D) -> ((B, S, D), aux), aux holding ``expert_load``,
     ``dropped_frac`` and ``router_entropy``. ``capacity_factor <= 0`` means
     no-drop capacity (C = T·K), what the engine and the LIS profile use.
-    ``plain=True`` asks every kernel route for its plain version."""
+    ``plain=True`` asks every kernel route for its plain version. A
+    ``meta`` input takes :func:`padded_dispatch`, where ``ctx``'s hints
+    sit."""
+    if x.is_meta:
+        return padded_dispatch(p, cfg, x, capacity_factor=capacity_factor,
+                               ctx=ctx)
     mc = cfg.moe
     B, S, D = x.shape
     E, K = mc.n_routed_experts, mc.top_k
     T = B * S
     xf = x.reshape(T, D)
     top_idx, gates, gate_scores = route(p, cfg, xf)
-
-    if capacity_factor <= 0:
-        C = T * K
-    else:
-        C = min(max(int(T * K / E * capacity_factor + 0.999), 1), T * K)
+    C = _capacity(T, K, E, capacity_factor)
     # rank each (token, k) pair in its expert's queue by a stable sort
     flat_e = top_idx.reshape(-1)                                     # (T*K,)
     order = torch.argsort(flat_e, stable=True)
@@ -147,6 +160,72 @@ def moe_apply(p, cfg, x, *, capacity_factor: float = 1.25,
 
 
 moe_apply.host_syncs = 0
+
+
+def _dense_expert_matmul(xg, w):
+    """(E, C, K) x every expert's (K, N) of the stack ``w`` (dense, or a
+    QTensor dequantized to ``xg.dtype``, as the JAX package multiplies a
+    QTensor without the kernel flag) -> (E, C, N)."""
+    if qlinear.is_quantized(w):
+        w = w.dequantize(xg.dtype)
+    return torch.einsum("ecd,edf->ecf", xg, w.to(xg.dtype))
+
+
+def padded_dispatch(p, cfg, x, *, capacity_factor: float = 1.25,
+                    ctx: L.ShardCtx = L.NO_SHARD):
+    """:func:`moe_apply` by the JAX package's dispatch: each (token, k)
+    pair ranked in its expert's queue by a stable sort, the kept pairs
+    scattered into a zero (E, C, D) buffer, every expert multiplying its
+    whole buffer, the rows gathered back and combined with their gates.
+    Nothing reads a value on the host, so it runs on ``meta``. The
+    buffers carry the JAX hints: experts over model, capacity over data
+    (``knobs.KNOBS.moe_ep_align``: experts over data x model)."""
+    from repro_torch.launch import knobs
+    mc = cfg.moe
+    B, S, D = x.shape
+    E, K = mc.n_routed_experts, mc.top_k
+    T = B * S
+    dev = x.device
+    xf = x.reshape(T, D)
+    top_idx, gates, gate_scores = route(p, cfg, xf)
+    C = _capacity(T, K, E, capacity_factor)
+    flat_e = top_idx.reshape(-1)                                     # (T*K,)
+    flat_tok = torch.arange(T, device=dev).repeat_interleave(K)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(E, device=dev))
+    rank_sorted = torch.arange(T * K, device=dev) - starts[sorted_e]
+    pos = torch.zeros_like(rank_sorted).scatter(0, order, rank_sorted)
+    keep = pos < C
+    dest = flat_e * C + torch.where(keep, pos, 0)
+
+    rows = torch.where(keep[:, None], xf[flat_tok], 0)
+    xg = torch.zeros((E * C, D), dtype=x.dtype, device=dev) \
+        .index_add(0, dest, rows).reshape(E, C, D)
+    if knobs.KNOBS.moe_ep_align and ctx.data_axis and ctx.model_axis:
+        espec = ((ctx.data_axis, ctx.model_axis), None, None)
+    else:
+        espec = (ctx.model_axis, ctx.data_axis, None)
+    xg = ctx.constrain(xg, espec, "moe.dispatch")
+    act = L._ACTS[cfg.act]
+    h = act(_dense_expert_matmul(xg, p["w_gate"])) \
+        * _dense_expert_matmul(xg, p["w_up"])
+    h = ctx.constrain(h, espec, "moe.hidden")
+    yg = _dense_expert_matmul(h, p["w_down"]).reshape(E * C, D)
+    yg = ctx.constrain(yg, (espec[0], None), "moe.combine")
+
+    contrib = yg[dest] * (keep * gates.reshape(-1))[:, None].to(x.dtype)
+    y = torch.zeros((T, D), dtype=x.dtype, device=dev) \
+        .index_add(0, flat_tok, contrib)
+    if mc.n_shared_experts:
+        y = y + L.mlp_apply(p["shared"], cfg, xf)
+    load = torch.zeros((E,), dtype=torch.float32, device=dev) \
+        .index_add(0, flat_e, torch.ones((T * K,), device=dev)) / (T * K)
+    aux = {"expert_load": load,
+           "dropped_frac": 1.0 - keep.to(torch.float32).mean(),
+           "router_entropy": -(gate_scores * torch.log(gate_scores + 1e-9))
+           .sum(dim=-1).mean()}
+    return y.reshape(B, S, D), aux
 
 
 def load_balance_loss(aux, cfg) -> torch.Tensor:
