@@ -2,6 +2,9 @@
 package: seeded numpy inputs, the JAX reduced Llama and its bridged twin,
 the engine tests' serving budget, and their near-tie check."""
 import functools
+import importlib.util
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -14,6 +17,8 @@ from repro.models import lm as jlm
 from repro_torch import bridge
 from repro_torch.configs import MORPH_LLAMA2_7B as T_LLAMA
 from repro_torch.configs import reduced as t_reduced
+
+ROOT = Path(__file__).resolve().parent.parent
 
 # the suite runs with several pytest-xdist workers on one machine
 torch.set_num_threads(2)
@@ -132,3 +137,13 @@ def record_gaps(eng):
     eng._prefill_real_many = prefill_many
     eng._prefill_chunk_real = prefill_chunk
     return gaps
+
+
+def load_module(name, path):
+    """The file ``path`` (relative to the repo root) as module ``name``:
+    the examples and ``benchmarks/common.py`` are in no package."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod          # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
